@@ -1,11 +1,13 @@
-# smb-vision-tpu container (role of the reference's CUDA Dockerfile:1-48,
-# rebased on TPU): JAX with the libtpu PJRT plugin instead of
-# torch+flash-attn wheels.
-FROM python:3.12-slim
+# smb-vision-tpu container for NVIDIA GPUs (role of the reference's CUDA
+# Dockerfile:1-48): JAX with its CUDA 12 plugin (cuDNN, cuBLAS, NCCL
+# wheels) instead of torch+flash-attn wheels.
+FROM nvidia/cuda:12.8.1-cudnn-runtime-ubuntu24.04
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
-        g++ make zlib1g-dev git \
+        python3 python3-pip python3-venv g++ make zlib1g-dev git \
     && rm -rf /var/lib/apt/lists/*
+RUN python3 -m venv /opt/venv
+ENV PATH=/opt/venv/bin:$PATH
 
 WORKDIR /app
 COPY pyproject.toml README.md ./
@@ -13,10 +15,9 @@ COPY smb_vision_tpu ./smb_vision_tpu
 COPY csrc ./csrc
 COPY scripts ./scripts
 COPY configs ./configs
+COPY chip_smoke.py bench.py ./
 
-# TPU runtime: jax[tpu] pulls the matching libtpu
-RUN pip install --no-cache-dir "jax[tpu]" \
-        -f https://storage.googleapis.com/jax-releases/libtpu_releases.html \
+RUN pip install --no-cache-dir "jax[cuda12]" \
     && pip install --no-cache-dir -e ".[data]"
 
 # native CT loader

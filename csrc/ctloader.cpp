@@ -3,7 +3,7 @@
 // The reference delegates its hot IO path to native code it doesn't own:
 // MONAI/ITK C extensions for NIfTI decode + resampling and torch's C++
 // DataLoader worker pool (SURVEY §2b). This library is the first-party
-// TPU-side equivalent: a C++ pipeline that, per volume,
+// equivalent: a C++ pipeline that, per volume,
 //   1. reads .nii / .nii.gz (zlib inflate)
 //   2. parses the NIfTI-1 header (dtype, affine, scl_slope/inter)
 //   3. reorients to RAS (nearest-axis transpose/flip from the affine)

@@ -3,7 +3,7 @@
 manifest {"images": [{"uid", "image_path", "metadata"}, ...]} consumed by
 smb_vision_tpu.cli.run_encoders / inference.runner.
 
-TPU-native analog of the reference's llava-med prep script
+Analog of the reference's llava-med prep script
 (/root/reference/scripts/inference/llava-med/build_json.py:26-57). Accepts
 both "conversations" and the reference data's misspelled "conversatons"
 key; skips records with missing fields or missing image files (reported at

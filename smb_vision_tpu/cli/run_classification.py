@@ -1,5 +1,5 @@
 """Fine-tuning CLI: classification | multilabel_classification | regression
-| survival | cox_regression — the TPU-native run_classification.py
+| survival | cox_regression — the JAX run_classification.py
 (reference /root/reference/src/run_classification.py).
 
 Parity points: task-type dispatch (:108-113), tabular additional_features
@@ -54,8 +54,7 @@ class ModelArguments:
     num_attention_heads: int = 12
     intermediate_size: int = 3072
     dtype: str = "bfloat16"
-    attn_impl: str = "auto"
-    mlp_impl: str = "auto"     # pallas_bwd = measured-best for training
+    attn_impl: str = "auto"    # auto | xla
     gradient_checkpointing: bool = False
     # LoRA (the reference's latent lora_enable path, now functional)
     lora_enable: bool = False
@@ -66,14 +65,13 @@ class ModelArguments:
 
 def _explicit_impl_args(model_args) -> dict:
     """Only-if-explicit CLI overrides for --config_name_or_path mode
-    (see run_mim.build_config): a config file pinning kernel impls,
+    (see run_mim.build_config): a config file pinning attn_impl,
     dtype, or gradient_checkpointing must not be silently reverted by
     the CLI defaults (round-5 review)."""
     from dataclasses import fields as dc_fields
     defaults = {f.name: f.default for f in dc_fields(ModelArguments)}
     return {k: getattr(model_args, k)
-            for k in ("dtype", "attn_impl", "mlp_impl",
-                      "gradient_checkpointing")
+            for k in ("dtype", "attn_impl", "gradient_checkpointing")
             if getattr(model_args, k) != defaults[k]}
 
 
@@ -98,6 +96,8 @@ def main(argv=None):
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
     from smb_vision_tpu.parallel.mesh import maybe_initialize_distributed
+    from smb_vision_tpu.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
     maybe_initialize_distributed(training_args.multihost)
     if data_args.additional_feature_columns == [""]:
         data_args.additional_feature_columns = []
@@ -131,7 +131,6 @@ def main(argv=None):
         num_attention_heads=model_args.num_attention_heads,
         num_labels=num_labels,
         dtype=model_args.dtype, attn_impl=model_args.attn_impl,
-        mlp_impl=model_args.mlp_impl,
         gradient_checkpointing=model_args.gradient_checkpointing)
     feat = dict(
         additional_features_size=len(data_args.additional_feature_columns),

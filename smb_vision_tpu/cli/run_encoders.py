@@ -35,11 +35,12 @@ class EncoderArguments:
     batch_size: int = 1
     num_workers: int = 8
     resume: bool = True
-    # siglip only: "jax" runs the first-party flax tower on TPU
+    # siglip only: "jax" runs the first-party tower on the accelerator
     # (models/siglip.py); "torch" runs the HF model on the host
     siglip_backend: str = field(default="jax", metadata={
         "help": "jax | torch"})
-    # merlin only: "jax" runs the first-party inflated-3D resnet on TPU
+    # merlin only: "jax" runs the first-party inflated-3D resnet on the
+    # accelerator
     # (models/resnet3d.py, needs --checkpoint); "torch" runs the external
     # `merlin` package on the host
     merlin_backend: str = field(default="jax", metadata={

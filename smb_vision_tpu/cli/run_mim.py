@@ -1,4 +1,4 @@
-"""MIM pretraining CLI — the TPU-native run_mim.py
+"""MIM pretraining CLI — the JAX run_mim.py
 (reference /root/reference/src/run_mim.py).
 
 Example:
@@ -10,7 +10,7 @@ Example:
 Differences from the reference, by design:
 - masks are generated on device per step (not cached with the data)
 - --config_overrides works (the reference ignored it, SURVEY §2 item 5)
-- checkpoint/resume via orbax (auto-detects latest in output_dir)
+- checkpoint/resume auto-detects the latest step in output_dir
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ class DataTrainingArguments:
         metadata={"help": "pin volumes in DEVICE memory after first "
                           "load; later epochs assemble batches on "
                           "device (zero host pixel bytes/step). For "
-                          "datasets that fit HBM next to the model "
+                          "datasets that fit device memory next to the model "
                           "state; requires grad-accum 1"})
 
 
@@ -71,16 +71,14 @@ class ModelArguments:
     hidden_size: int = 768
     num_hidden_layers: int = 12
     num_attention_heads: int = 12
-    decoder_num_attention_heads: int = 6   # 3 -> head_dim 128 (TPU config)
+    decoder_num_attention_heads: int = 6
     intermediate_size: int = 3072
     dtype: str = "bfloat16"
-    attn_impl: str = "auto"
-    mlp_impl: str = field(
+    attn_impl: str = field(
         default="auto",
-        metadata={"help": "MLP kernel: auto|pallas|pallas_bwd|xla. "
-                          "'pallas_bwd' (kernel backward, no recompute) "
-                          "is the measured-best training setting "
-                          "(BENCHMARKS.md in-model A/Bs)"})
+        metadata={"help": "attention: auto (cuDNN fused attention on the "
+                          "GPU where dtype and head dim allow, else XLA) "
+                          "| xla"})
     gradient_checkpointing: bool = False
     sequence_parallel: bool = False
     export_hf: bool = False
@@ -89,7 +87,7 @@ class ModelArguments:
         metadata={"help": "GPipe-pipeline the encoder+decoder stacks over "
                           "this many stages (the mesh model axis): each "
                           "device holds layers/S of both stacks, for "
-                          "models deeper than one chip's HBM. Both layer "
+                          "models deeper than one device's memory. Both layer "
                           "counts must divide by it; microbatching "
                           "replaces gradient accumulation"})
     pipeline_microbatches: int = field(
@@ -128,15 +126,14 @@ def build_config(model_args: ModelArguments):
         "decoder_num_attention_heads": (
             "decoder_num_attention_heads",
             model_args.decoder_num_attention_heads),
-        # kernel impls / dtype / remat get the same only-if-explicit
-        # guard: a config file pinning mlp_impl='pallas_bwd',
-        # attn_impl='pallas_i8bwd', gradient_checkpointing=true or
-        # dtype='float32' must not be silently reverted by CLI
-        # defaults. (Explicitly passing the default value, e.g.
-        # `--mlp_impl auto`, is indistinguishable from unset — use
-        # --config_overrides to force a default over a file pin.)
+        # attention impl / dtype / remat get the same only-if-explicit
+        # guard: a config file pinning attn_impl='xla',
+        # gradient_checkpointing=true or dtype='float32' must not be
+        # silently reverted by CLI defaults. (Explicitly passing the
+        # default value, e.g. `--attn_impl auto`, is indistinguishable
+        # from unset — use --config_overrides to force a default over a
+        # file pin.)
         "attn_impl": ("attn_impl", model_args.attn_impl),
-        "mlp_impl": ("mlp_impl", model_args.mlp_impl),
         "dtype": ("dtype", model_args.dtype),
         "gradient_checkpointing": ("gradient_checkpointing",
                                    model_args.gradient_checkpointing),
@@ -170,6 +167,8 @@ def main(argv=None):
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
     from smb_vision_tpu.parallel.mesh import maybe_initialize_distributed
+    from smb_vision_tpu.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
     maybe_initialize_distributed(training_args.multihost)
     config = build_config(model_args)
     logger.info("MIM config: %s tokens, grid %s", config.seq_len, config.grid)
@@ -279,8 +278,7 @@ def main(argv=None):
         min_lr=training_args.min_lr, grad_clip=training_args.max_grad_norm)
     from smb_vision_tpu.parallel.mesh import create_mesh
 
-    mesh = create_mesh(model=training_args.model_parallel,
-                       dcn=training_args.dcn_slices)
+    mesh = create_mesh(model=training_args.model_parallel)
     if pipelined:
         from smb_vision_tpu.train.mim import make_pipelined_mim_workload
 

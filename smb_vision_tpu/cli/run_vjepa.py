@@ -1,4 +1,4 @@
-"""V-JEPA2 pretraining CLI — the TPU-native run_vjepa.py
+"""V-JEPA2 pretraining CLI — the JAX run_vjepa.py
 (reference /root/reference/src/run_vjepa.py).
 
 Recipe parity (run_vjepa.sh:16-42): 384^2x256 @ spacing (1.0,1.0,1.5),
@@ -27,7 +27,7 @@ class DataTrainingArguments:
     cache_data_dir: Optional[str] = None
     cache_dtype: str = "float32"
     num_workers: int = 8
-    device_cache: bool = False    # pin volumes in HBM across epochs
+    device_cache: bool = False    # pin volumes in device memory
     num_mask_blocks: int = 3
     inv_block: bool = False
 
@@ -52,18 +52,12 @@ class ModelArguments:
     pred_num_hidden_layers: int = 12
     pred_num_attention_heads: int = 12
     ema_momentum: float = 0.99925
-    # attention impl for the forward-only EMA teacher (e.g. "pallas_int8"
-    # to run target encoding on the 2x-rate int8 MXU path); None = same as
-    # the online model
-    teacher_attn_impl: Optional[str] = None
     dtype: str = "bfloat16"
-    attn_impl: str = "auto"
-    mlp_impl: str = field(
+    attn_impl: str = field(
         default="auto",
-        metadata={"help": "MLP kernel: auto|pallas|pallas_bwd|xla. "
-                          "'pallas_bwd' (kernel backward, no recompute) "
-                          "is the measured-best training setting "
-                          "(BENCHMARKS.md in-model A/Bs)"})
+        metadata={"help": "attention: auto (cuDNN fused attention on the "
+                          "GPU where dtype and head dim allow, else XLA) "
+                          "| xla"})
     gradient_checkpointing: bool = False
     sequence_parallel: bool = False
     export_hf: bool = False
@@ -107,11 +101,10 @@ def build_config(model_args: ModelArguments):
         "patch_size": ("patch_size", model_args.patch_size),
         "frames_per_clip": ("depth", model_args.depth),
         "tubelet_size": ("patch_size", model_args.patch_size),
-        # kernel impls / dtype / remat get the same only-if-explicit
+        # attention impl / dtype / remat get the same only-if-explicit
         # guard (see run_mim.build_config; --config_overrides forces a
         # default over a file pin)
         "attn_impl": ("attn_impl", model_args.attn_impl),
-        "mlp_impl": ("mlp_impl", model_args.mlp_impl),
         "dtype": ("dtype", model_args.dtype),
         "gradient_checkpointing": ("gradient_checkpointing",
                                    model_args.gradient_checkpointing),
@@ -147,6 +140,8 @@ def main(argv=None):
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
     from smb_vision_tpu.parallel.mesh import maybe_initialize_distributed
+    from smb_vision_tpu.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
     maybe_initialize_distributed(training_args.multihost)
     config = build_config(model_args)
     logger.info("VJEPA config: %s tokens, grid %s", config.seq_len,
@@ -160,10 +155,6 @@ def main(argv=None):
                 "--pipeline_stages replaces gradient accumulation with "
                 "microbatching (--pipeline_microbatches); set "
                 "--gradient_accumulation_steps 1")
-        if model_args.teacher_attn_impl:
-            raise SystemExit(
-                "--teacher_attn_impl is not supported with "
-                "--pipeline_stages (measured flat anyway, BENCHMARKS.md)")
         training_args.model_parallel = model_args.pipeline_stages
         if "pipeline" not in training_args.sharding_policy:
             # composites like "pipeline+fsdp" pass through unchanged
@@ -233,8 +224,7 @@ def main(argv=None):
         min_lr=training_args.min_lr, grad_clip=training_args.max_grad_norm)
     from smb_vision_tpu.parallel.mesh import create_mesh
 
-    mesh = create_mesh(model=training_args.model_parallel,
-                       dcn=training_args.dcn_slices)
+    mesh = create_mesh(model=training_args.model_parallel)
     if pipelined:
         import math
 
@@ -261,7 +251,6 @@ def main(argv=None):
             grad_accum=training_args.gradient_accumulation_steps,
             accum_dtype=training_args.grad_accum_dtype,
             ema_momentum=model_args.ema_momentum,
-            teacher_attn_impl=model_args.teacher_attn_impl,
             num_blocks=data_args.num_mask_blocks,
             inv_block=data_args.inv_block)
 

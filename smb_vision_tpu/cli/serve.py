@@ -2,7 +2,7 @@
 
 The reference ships batch fan-out only (run_inspect.py shards a manifest
 over processes); production deployments also need an online endpoint that
-keeps the compiled program and params resident on the chip and answers
+keeps the compiled program and params resident on the device and answers
 per-volume requests. This is that endpoint, stdlib-only (http.server):
 
     python -m smb_vision_tpu.cli.serve \
@@ -19,13 +19,13 @@ per-volume requests. This is that endpoint, stdlib-only (http.server):
                                  (Content-Type: application/octet-stream)
       -> same response, for clients without a shared filesystem
 
-TPU-shaped design choices:
+Design choices:
 - ONE compiled program at a fixed batch size: requests are padded to
   `--batch_size` and chunked, so no request shape ever triggers a
   recompile (first compile happens at startup via `--warmup`).
 - preprocessing (NIfTI decode + resample, the native C++ path when
   built) runs in the request thread; device dispatch is serialized by a
-  lock — the chip executes one program at a time anyway, and the lock
+  lock — the device executes one program at a time anyway, and the lock
   keeps host->device transfers ordered behind it.
 - repeat requests for the same volume hit the versioned preprocess cache
   (`--cache_data_dir`), so only the encoder forward recurs.
@@ -320,6 +320,8 @@ def make_server(args: ServeArguments) -> ThreadingHTTPServer:
 
 def main(argv=None):
     (args,) = parse_args_into_dataclasses((ServeArguments,), argv)
+    from smb_vision_tpu.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
     srv = make_server(args)
     logger.info("serving on http://%s:%d (model %s)",
                 *srv.server_address[:2], args.model_id)

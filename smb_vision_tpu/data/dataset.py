@@ -10,7 +10,7 @@ so caches are reusable across mask configs and steps stay replayable.
 
 `BatchLoader` replaces torch DataLoader worker pools: a thread pool decodes/
 loads cache entries ahead of time and an iterator yields stacked numpy
-batches; `prefetch_to_device` double-buffers host->HBM transfers.
+batches; `prefetch_to_device` double-buffers host->device transfers.
 """
 
 from __future__ import annotations
@@ -342,12 +342,11 @@ class DeviceCachedBatchLoader(BatchLoader):
     its first (host) load; from the second epoch on, batches are
     assembled on device and the host moves zero pixel bytes per step.
 
-    TPU-native epoch caching for datasets that fit HBM alongside the
+    Epoch caching for datasets that fit device memory alongside the
     model state (fine-tune cohorts, small/medium pretraining sets: a
-    512**2 x 320 volume is 168 MB in bf16). On hosts where bulk memory
-    ops or the host->device link are the bottleneck (measured 8 MB/s
-    host memcpy vs 0.29 s/step compute on the round-3 bench VM) this
-    takes the steady state from ~50 s/step to compute-bound.
+    512**2 x 320 volume is 168 MB in bf16). Where bulk host memory ops
+    or the host->device link bound the step, this removes them from the
+    steady state.
 
     Restrictions: pixel-only batches (the pretraining workloads — MIM /
     V-JEPA mask generation happens on device from the PRNG key, so
@@ -386,7 +385,7 @@ class DeviceCachedBatchLoader(BatchLoader):
                 px = px.astype(self.input_dtype)
             entry = (jax.device_put(px),)
             if "image_scale" in ex:
-                # uint8 volumes pin at 1 byte/voxel — 2x the HBM capacity
+                # uint8 volumes pin at 1 byte/voxel — 2x the capacity
                 # of the bf16 cache; decoded in-step by dequantize_batch
                 entry += (jax.device_put(np.asarray([ex["image_scale"]],
                                                     np.float32)),

@@ -1,5 +1,5 @@
-"""NIfTI-1/2 volume IO, implemented from the format spec (no nibabel in the
-TPU image — the reference delegates decode to MONAI's LoadImaged/ITK stack,
+"""NIfTI-1/2 volume IO, implemented from the format spec (no nibabel
+dependency — the reference delegates decode to MONAI's LoadImaged/ITK stack,
 mim.py:146; here it's first-party).
 
 Supports .nii / .nii.gz, NIfTI-1 and NIfTI-2 headers, both endiannesses,

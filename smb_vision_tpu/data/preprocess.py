@@ -1,4 +1,4 @@
-"""CT preprocessing: the TPU-native equivalent of the reference's MONAI
+"""CT preprocessing: the JAX/numpy equivalent of the reference's MONAI
 transform chains (/root/reference/src/dataloader/transforms.py:220-314):
 
     LoadImaged -> EnsureChannelFirstd -> Orientationd(RAS) -> Spacingd

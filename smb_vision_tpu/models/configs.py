@@ -15,8 +15,33 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
+
+# attention implementations a config may name; "auto" picks by platform,
+# dtype and head dim (ops/attention.py::attention_backend)
+ATTN_IMPLS = ("auto", "xla")
+# kernel selectors of earlier releases; a saved config or a config file
+# that still names them loads with the field dropped (see legacy_fields)
+_REMOVED_FIELDS = ("mlp_impl", "glue_impl", "teacher_attn_impl")
+
+
+def legacy_fields(d: dict, source: str = "config") -> dict:
+    """Copy of `d` with removed kernel selectors dropped and a removed
+    attention kernel (`attn_impl` "pallas*") reset to "auto",
+    with one warning per field. Command-line values are not passed through
+    here: there the removed values are rejected as unknown."""
+    d = dict(d)
+    for k in _REMOVED_FIELDS:
+        if k in d:
+            warnings.warn(f"{source}: dropping removed field {k}="
+                          f"{d.pop(k)!r}", stacklevel=2)
+    if str(d.get("attn_impl", "auto")).startswith("pallas"):
+        warnings.warn(f"{source}: attn_impl={d['attn_impl']!r} was removed; "
+                      "using 'auto'", stacklevel=2)
+        d["attn_impl"] = "auto"
+    return d
 
 
 def _tuple3(v) -> Tuple[int, int, int]:
@@ -27,8 +52,18 @@ def _tuple3(v) -> Tuple[int, int, int]:
     return (int(v),) * 3
 
 
+def check_attn_impl(impl: str) -> str:
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; valid: "
+                         + ", ".join(repr(v) for v in ATTN_IMPLS))
+    return impl
+
+
 @dataclass
 class BaseConfig:
+    def __post_init__(self):
+        check_attn_impl(getattr(self, "attn_impl", "auto"))
+
     def update(self, updates: dict) -> "BaseConfig":
         """HF-style in-place update; unknown keys are ignored with the same
         permissiveness as PretrainedConfig.update."""
@@ -36,6 +71,7 @@ class BaseConfig:
         for k, v in updates.items():
             if k in names:
                 setattr(self, k, v)
+        check_attn_impl(getattr(self, "attn_impl", "auto"))
         return self
 
     def to_dict(self) -> dict:
@@ -46,6 +82,7 @@ class BaseConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "BaseConfig":
         names = {f.name for f in dataclasses.fields(cls)}
+        d = legacy_fields(d, cls.__name__)
         return cls(**{k: v for k, v in d.items() if k in names})
 
     @classmethod
@@ -101,25 +138,16 @@ class VideoMAEConfig(BaseConfig):
 
     # framework knobs (not in HF config)
     dtype: str = "bfloat16"         # compute dtype
-    attn_impl: str = "auto"         # auto | pallas | xla
-    # fused Pallas MLP kernel on TPU (ops/mlp.py): auto | pallas | xla
-    mlp_impl: str = "auto"
-    # fused attention-glue kernels (ops/attn_glue.py): LN+QKV prologue and
-    # out-proj+residual epilogue as pallas kernels. Measured NEGATIVE:
-    # isolated A/B flat (2.70 vs 2.63 ms/layer-glue), in-model -13%
-    # (BENCHMARKS.md "attention half-block") — "auto" resolves to xla;
-    # "pallas" runs the kernels (A/B knob).
-    glue_impl: str = "auto"
-    # one wide QKV matmul instead of three narrow ones — measured 3-5%
-    # SLOWER in-model (XLA's dot-merger already coalesces the narrow
-    # dots; BENCHMARKS.md); kept as an A/B knob
+    attn_impl: str = "auto"         # auto | xla
+    # one wide QKV matmul instead of three narrow ones (A/B knob; XLA's
+    # dot-merger already coalesces the narrow dots)
     fused_qkv: bool = False
     gradient_checkpointing: bool = False
     # shard the token dimension over the mesh "model" axis; attention runs
-    # the flash kernel per shard (all-gather-kv CP or ring attention)
+    # per shard (all-gather-kv CP or ring attention)
     sequence_parallel: bool = False
     sp_variant: str = "gather"      # gather (all-gather kv) | ring
-    # W8A8 transformer projections on the int8 MXU (inference only: the
+    # W8A8 transformer projections as int8 matmuls (inference only: the
     # quantization round is not differentiable)
     quant8: bool = False
 
@@ -185,14 +213,7 @@ class VJEPA2Config(BaseConfig):
     # framework knobs
     dtype: str = "bfloat16"
     attn_impl: str = "auto"
-    mlp_impl: str = "auto"          # fused Pallas MLP kernel on TPU
-    # fused attention-glue kernels (ops/attn_glue.py): LN+QKV prologue and
-    # out-proj+residual epilogue as pallas kernels. Measured NEGATIVE:
-    # isolated A/B flat (2.70 vs 2.63 ms/layer-glue), in-model -13%
-    # (BENCHMARKS.md "attention half-block") — "auto" resolves to xla;
-    # "pallas" runs the kernels (A/B knob).
-    glue_impl: str = "auto"
-    fused_qkv: bool = False         # measured negative (BENCHMARKS.md)
+    fused_qkv: bool = False         # A/B knob, see VideoMAEConfig
     gradient_checkpointing: bool = False
     sequence_parallel: bool = False
     sp_variant: str = "gather"      # gather (all-gather kv) | ring
@@ -220,7 +241,7 @@ class VJEPA2Config(BaseConfig):
 class SiglipVisionConfig(BaseConfig):
     """SigLIP vision tower (2D X-ray embeddings — the reference runs the
     torch SiglipVisionModel on GPU via run_siglip.py:49-56; here it is a
-    first-party flax model on the TPU compute path). Field names mirror
+    first-party model on the JAX compute path). Field names mirror
     transformers.SiglipVisionConfig so local HF checkpoints convert
     weight-for-weight (models/convert.py::convert_hf_siglip)."""
 
@@ -243,13 +264,6 @@ class SiglipVisionConfig(BaseConfig):
     # framework knobs
     dtype: str = "bfloat16"
     attn_impl: str = "auto"
-    mlp_impl: str = "auto"
-    # fused attention-glue kernels (ops/attn_glue.py): LN+QKV prologue and
-    # out-proj+residual epilogue as pallas kernels. Measured NEGATIVE:
-    # isolated A/B flat (2.70 vs 2.63 ms/layer-glue), in-model -13%
-    # (BENCHMARKS.md "attention half-block") — "auto" resolves to xla;
-    # "pallas" runs the kernels (A/B knob).
-    glue_impl: str = "auto"
     gradient_checkpointing: bool = False
 
     @property
@@ -298,14 +312,7 @@ class Dinov2Config(BaseConfig):
 
     dtype: str = "bfloat16"
     attn_impl: str = "auto"
-    mlp_impl: str = "auto"          # fused Pallas MLP kernel on TPU
-    # fused attention-glue kernels (ops/attn_glue.py): LN+QKV prologue and
-    # out-proj+residual epilogue as pallas kernels. Measured NEGATIVE:
-    # isolated A/B flat (2.70 vs 2.63 ms/layer-glue), in-model -13%
-    # (BENCHMARKS.md "attention half-block") — "auto" resolves to xla;
-    # "pallas" runs the kernels (A/B knob).
-    glue_impl: str = "auto"
-    fused_qkv: bool = False         # measured negative (BENCHMARKS.md)
+    fused_qkv: bool = False         # A/B knob, see VideoMAEConfig
     gradient_checkpointing: bool = False
 
     @property
@@ -336,7 +343,7 @@ class ResNet3DConfig(BaseConfig):
     (batch, tokens, dim) embedding per run_merlin.py:45-48). The reference
     outsources the architecture to the external `merlin` package (its own
     import of it was broken, SURVEY §2 item 16); here the tower is a
-    first-party flax model on the TPU compute path.
+    first-party model on the JAX compute path.
 
     Geometry convention (matches torch Conv3d semantics so torch
     checkpoints convert weight-for-weight): the three volume axes are
@@ -382,14 +389,3 @@ class ResNet3DConfig(BaseConfig):
     def hidden_size(self) -> int:
         return self.base_width * (2 ** (len(self.stage_sizes) - 1)) \
             * self.expansion
-
-def impl_neutral(config):
-    """Copy of `config` with the kernel impls forced to 'xla'.
-
-    Parameter SHAPES do not depend on attn_impl/mlp_impl, so model.init
-    may trace under neutral kernels. A FORCED pallas impl (e.g. the TPU
-    presets' mlp_impl='pallas_bwd') would otherwise reject init-time row
-    counts — init often runs a 1-sample slice or init_batch_size() rows
-    that do not map onto the kernel even when the real train batch does
-    (run_cls.sh geometry: 1960 rows at bs 1 vs 15680 padded at bs 8)."""
-    return dataclasses.replace(config, attn_impl="xla", mlp_impl="xla")

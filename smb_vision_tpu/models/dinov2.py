@@ -1,6 +1,6 @@
 """DINOv2 adapted to 3D volumes (classification backbone).
 
-Re-implements /root/reference/src/models/dinov2/modeling_dinov2.py TPU-first:
+Re-implements /root/reference/src/models/dinov2/modeling_dinov2.py in JAX:
 Conv3d patch embed over (B, C, H, W, D) input (the dinov2 transform pipeline
 does *not* permute, transforms.py:283-298), CLS token, learned 3D position
 embeddings, layerscale/droppath blocks, optional SwiGLU FFN, and the
@@ -15,7 +15,7 @@ grid, and resizing between grids is an explicit checkpoint-conversion utility
 
 from __future__ import annotations
 
-import flax.linen as nn
+from smb_vision_tpu import nn
 import jax
 import jax.numpy as jnp
 
@@ -114,8 +114,7 @@ class Dinov2Model(nn.Module):
             layerscale_value=cfg.layerscale_value,
             drop_path_rate=cfg.drop_path_rate,
             use_swiglu=cfg.use_swiglu_ffn, dtype=dt,
-            attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
-            glue_impl=cfg.glue_impl,
+            attn_impl=cfg.attn_impl,
             fused_qkv=cfg.fused_qkv,
             remat=cfg.gradient_checkpointing,
             initializer_range=cfg.initializer_range,

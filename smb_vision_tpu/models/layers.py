@@ -1,14 +1,14 @@
-"""Shared transformer building blocks (flax.linen).
+"""Shared transformer building blocks.
 
 One block implementation serves VideoMAE encoder/decoder, VJEPA2
 encoder/predictor, and DINOv2 — they differ only in bias pattern, RoPE,
 layerscale/droppath, and FFN flavour, all expressed as module options.
 
 Conventions:
-- params are float32; compute dtype configurable (bf16 on TPU)
+- params are float32; compute dtype configurable (bf16 on the GPU)
 - LayerNorm statistics in float32
-- attention dispatches to the Pallas flash kernel on TPU
-  (smb_vision_tpu.ops.attention), XLA elsewhere
+- attention goes through smb_vision_tpu.ops.attention, which picks cuDNN's
+  fused attention on the GPU and plain XLA elsewhere
 - `gelu` is the exact (erf) variant to match torch nn.GELU
 """
 
@@ -16,21 +16,14 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from smb_vision_tpu import nn
 from smb_vision_tpu.ops.attention import attention
+from smb_vision_tpu.ops.mlp import ACT2FN
 from smb_vision_tpu.ops.quant import w8a8_dot
 from smb_vision_tpu.ops.rope3d import apply_rope3d
-
-ACT2FN = {
-    "gelu": lambda x: jax.nn.gelu(x, approximate=False),
-    "gelu_new": lambda x: jax.nn.gelu(x, approximate=True),
-    "relu": jax.nn.relu,
-    "selu": jax.nn.selu,
-    "silu": jax.nn.silu,
-}
 
 
 def trunc_normal_init(std: float):
@@ -38,7 +31,7 @@ def trunc_normal_init(std: float):
 
 
 class QuantDense(nn.Module):
-    """Drop-in for nn.Dense that runs x@kernel on the int8 MXU (W8A8
+    """Drop-in for nn.Dense that runs x@kernel as an int8 matmul (W8A8
     dynamic quantization, ops/quant.py). Identical param structure —
     checkpoints interchange freely with nn.Dense. Inference only: the
     quantization round is not differentiable."""
@@ -80,26 +73,18 @@ class Attention(nn.Module):
     attn_impl: str = "auto"
     initializer_range: float = 0.02
     # sequence parallelism: tokens sharded over the mesh "model" axis; the
-    # local shard still runs the flash kernel (all-gather-kv CP or ring)
+    # local shard runs attention (all-gather-kv CP or ring)
     sequence_parallel: bool = False
     sp_variant: str = "gather"   # "gather" (all-gather kv) | "ring"
     quant8: bool = False         # W8A8 projections (inference only)
-    # one (h, 3h) QKV matmul instead of three (h, h) ones. The isolated
-    # chain probe suggested 2x (84.7 vs 40.6 TFLOP/s,
-    # scripts/kexp/projk.py) but IN-MODEL this LOSES 3-5% (d64+int8
-    # 6.36 vs 6.69 vol/s same-session A/B, model_bench.py qkv): XLA's
+    # one (h, 3h) QKV matmul instead of three (h, h) ones. XLA's
     # dot-merger already coalesces same-input narrow dots inside the
-    # block, and the manual concat+slice adds copies it doesn't need.
-    # Kept as a measured negative; default OFF.
+    # block, and the manual concat+slice adds copies; default OFF.
     fused_qkv: bool = False
-    # fused attention-glue kernels (ops/attn_glue.py): engaged by Block
-    # via the `glue` argument when glue_impl == "pallas"
-    glue_impl: str = "auto"
 
     @nn.compact
     def __call__(self, x, rope: Optional[Tuple[jax.Array, jax.Array]] = None,
-                 kv: Optional[jax.Array] = None,
-                 glue: Optional[dict] = None):
+                 kv: Optional[jax.Array] = None):
         b, n, _ = x.shape
         h = self.hidden_size
         head_dim = h // self.num_heads
@@ -113,39 +98,6 @@ class Attention(nn.Module):
         kb = self.bias_mode == "qkv"
         vb = self.bias_mode in ("qkv", "qv")
         src = x if kv is None else kv
-        if glue is not None:
-            # whole attention half-block through the fused glue kernels:
-            # qkv_ln_forward(LN prologue + projections) -> flash core ->
-            # attn_out_residual(out-proj + LayerScale + residual). The
-            # param tree stays identical to the unfused path
-            # (_DenseParams mirrors nn.Dense's kernel/bias layout).
-            from smb_vision_tpu.ops.attn_glue import (
-                attn_out_residual,
-                qkv_ln_forward,
-            )
-
-            assert kv is None and not self.quant8 and self.out_proj
-            wq, bq_ = _DenseParams(h, kinit, qb, name="query")(h)
-            wk, bk_ = _DenseParams(h, kinit, kb, name="key")(h)
-            wv, bv_ = _DenseParams(h, kinit, vb, name="value")(h)
-            wo, bo_ = _DenseParams(h, kinit, self.out_bias,
-                                   name="proj")(h)
-            q, k, v = qkv_ln_forward(
-                x.astype(self.dtype), glue["lnw"], glue["lnb"],
-                wq, bq_, wk, bk_, wv, bv_, eps=glue["eps"],
-                impl=self.glue_impl)
-            q = q.reshape(b, n, self.num_heads, head_dim)
-            k = k.reshape(b, n, self.num_heads, head_dim)
-            v = v.reshape(b, n, self.num_heads, head_dim)
-            if rope is not None:
-                cos, sin = rope
-                q = apply_rope3d(q, cos, sin)
-                k = apply_rope3d(k, cos, sin)
-            out = self._attend(q, k, v).reshape(b, n, h)
-            bo_ = jnp.zeros((h,), jnp.float32) if bo_ is None else bo_
-            return attn_out_residual(x.astype(self.dtype), out, wo, bo_,
-                                     layerscale=glue.get("lam"),
-                                     impl=self.glue_impl)
         if self.fused_qkv and not self.quant8:
             dt = self.dtype
             wq, bq = _DenseParams(h, kinit, qb, name="query")(x.shape[-1])
@@ -207,18 +159,16 @@ class Attention(nn.Module):
                     "apply/jit in `with jax.set_mesh(mesh):`")
             if self.sp_variant == "ring":
                 return ring_attention(q, k, v, mesh=mesh, axis=MODEL_AXIS,
-                                      impl=self.attn_impl,
                                       batch_axis=DATA_AXIS)
             return context_parallel_attention(
-                q, k, v, mesh=mesh, axis=MODEL_AXIS,
-                impl=self.attn_impl, batch_axis=DATA_AXIS)
+                q, k, v, mesh=mesh, axis=MODEL_AXIS, batch_axis=DATA_AXIS)
         return attention(q, k, v, impl=self.attn_impl)
 
 
 class _DenseParams(nn.Module):
     """Parameter holder with nn.Dense's exact param structure
-    (kernel/bias under the module name) for ops that consume raw
-    weights — checkpoints interchange freely with nn.Dense."""
+    (kernel/bias under the module name) for the fused-QKV path, which
+    concatenates raw weights — checkpoints interchange with nn.Dense."""
 
     features: int
     kernel_init: Callable
@@ -234,63 +184,9 @@ class _DenseParams(nn.Module):
         return kernel, bias
 
 
-class _MlpParams(nn.Module):
-    """fc1/fc2 raw weights with the Mlp module's exact param tree, for
-    the fused half-block kernel (ops/mlp.py::mlp_block_forward)."""
-
-    hidden_size: int
-    intermediate_size: int
-    kernel_init: Callable
-
-    @nn.compact
-    def __call__(self, in_features: int):
-        w1, b1 = _DenseParams(self.intermediate_size, self.kernel_init,
-                              name="fc1")(in_features)
-        w2, b2 = _DenseParams(self.hidden_size, self.kernel_init,
-                              name="fc2")(self.intermediate_size)
-        return w1, b1, w2, b2
-
-
-class _SwiGLUParams(nn.Module):
-    """weights_in/weights_out raw weights with the SwiGLU module's exact
-    param tree, for the fused half-block kernel."""
-
-    hidden_size: int
-    intermediate_size: int
-    kernel_init: Callable
-
-    @nn.compact
-    def __call__(self, in_features: int):
-        w_in, b_in = _DenseParams(2 * self.intermediate_size,
-                                  self.kernel_init,
-                                  name="weights_in")(in_features)
-        w_out, b_out = _DenseParams(self.hidden_size, self.kernel_init,
-                                    name="weights_out")(
-            self.intermediate_size)
-        return w_in, b_in, w_out, b_out
-
-
-class _LayerNormParams(nn.Module):
-    """scale/bias with nn.LayerNorm's param tree, consumed raw by the
-    fused half-block kernel."""
-
-    features: int
-
-    @nn.compact
-    def __call__(self):
-        scale = self.param("scale", nn.initializers.ones,
-                           (self.features,), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros,
-                          (self.features,), jnp.float32)
-        return scale, bias
-
-
 class Mlp(nn.Module):
-    """fc1 -> act -> fc2. mlp_impl routes gelu-family MLPs through the
-    fused Pallas kernel on TPU (ops/mlp.py: one kernel, the (N, F)
-    intermediate never leaves VMEM — +34% over the XLA chain on v5e);
-    'auto' falls back to plain XLA off-TPU, for non-gelu acts, and for
-    shapes the kernel can't map (e.g. DINOv2's odd CLS-token rows)."""
+    """fc1 -> act -> fc2. On the GPU the matmuls run through cuBLAS and
+    XLA fuses the bias and activation into their epilogues."""
 
     hidden_size: int
     intermediate_size: int
@@ -298,30 +194,10 @@ class Mlp(nn.Module):
     dtype: jnp.dtype = jnp.bfloat16
     initializer_range: float = 0.02
     quant8: bool = False
-    mlp_impl: str = "auto"
 
     @nn.compact
     def __call__(self, x):
-        if self.mlp_impl not in ("auto", "pallas", "pallas_bwd", "xla"):
-            raise ValueError(
-                f"unknown mlp impl {self.mlp_impl!r}; "
-                "valid: 'auto', 'pallas', 'pallas_bwd', 'xla'")
         kinit = trunc_normal_init(self.initializer_range)
-        # auto only engages for bf16 compute: the kernel computes in
-        # bf16, so an f32-configured model must not silently degrade
-        route = (self.mlp_impl in ("pallas", "pallas_bwd")
-                 or (self.mlp_impl == "auto"
-                     and self.dtype == jnp.bfloat16))
-        if not self.quant8 and self.act in ("gelu", "gelu_new") \
-                and route:
-            from smb_vision_tpu.ops.mlp import mlp_forward
-
-            w1, b1 = _DenseParams(self.intermediate_size, kinit,
-                                  name="fc1")(x.shape[-1])
-            w2, b2 = _DenseParams(self.hidden_size, kinit,
-                                  name="fc2")(self.intermediate_size)
-            return mlp_forward(x.astype(self.dtype), w1, b1, w2, b2,
-                               act=self.act, impl=self.mlp_impl)
         dense_cls = QuantDense if self.quant8 else nn.Dense
         x = dense_cls(self.intermediate_size, dtype=self.dtype,
                       param_dtype=jnp.float32, kernel_init=kinit,
@@ -394,9 +270,7 @@ class Block(nn.Module):
     sequence_parallel: bool = False
     sp_variant: str = "gather"
     quant8: bool = False
-    mlp_impl: str = "auto"
     fused_qkv: bool = False
-    glue_impl: str = "auto"
 
     @nn.compact
     def __call__(self, x, rope=None, deterministic: bool = True,
@@ -415,102 +289,17 @@ class Block(nn.Module):
                 self.layerscale_value), (self.hidden_size,), jnp.float32)
             return h * lam.astype(h.dtype)
 
-        dp_off = deterministic or (dp_rate is None
-                                   and self.drop_path_rate == 0.0)
         base = DropPath(self.drop_path_rate)
         dp = lambda h, det: base(h, det, rate_override=dp_rate)  # noqa: E731
-        if self.glue_impl not in ("auto", "pallas", "xla"):
-            raise ValueError(f"unknown glue impl {self.glue_impl!r}; "
-                             "valid: 'auto', 'pallas', 'xla'")
-        # attention half-block through the fused glue kernels
-        # (ops/attn_glue.py) — explicit opt-in only: isolated A/B flat,
-        # in-model -13% (BENCHMARKS.md "attention half-block"), so
-        # "auto" keeps the plain path, unlike mlp_impl's auto-fuse
-        fuse_attn = (self.glue_impl == "pallas" and not self.quant8
-                     and not self.fused_qkv and dp_off)
-        attn = Attention(self.hidden_size, self.num_heads,
-                         bias_mode=self.bias_mode, dtype=self.dtype,
-                         attn_impl=self.attn_impl,
-                         initializer_range=self.initializer_range,
-                         sequence_parallel=self.sequence_parallel,
-                         sp_variant=self.sp_variant, quant8=self.quant8,
-                         fused_qkv=self.fused_qkv,
-                         glue_impl=self.glue_impl,
-                         name="attention")
-        if fuse_attn:
-            lnw1, lnb1 = _LayerNormParams(self.hidden_size,
-                                          name="norm1")()
-            lam1 = None
-            if self.layerscale_value is not None:
-                lam1 = self.param(
-                    "layerscale1", nn.initializers.constant(
-                        self.layerscale_value),
-                    (self.hidden_size,), jnp.float32)
-            x = attn(x, rope=rope,
-                     glue=dict(lnw=lnw1, lnb=lnb1, lam=lam1,
-                               eps=self.layer_norm_eps))
-        else:
-            h = attn(ln("norm1")(x), rope=rope)
-            x = x + dp(scaled("layerscale1", h), deterministic)
-
-        # the whole MLP half-block (LN -> fc1 -> gelu -> fc2
-        # [-> layerscale] -> residual) fuses into ONE pallas kernel when
-        # nothing non-foldable sits in the chain (DropPath active =
-        # per-sample random scale; SwiGLU/quant8 have their own paths).
-        # LayerScale folds into w2/b2. Params keep the norm2/mlp trees.
-        if self.mlp_impl not in ("auto", "pallas", "pallas_bwd", "xla"):
-            raise ValueError(
-                f"unknown mlp impl {self.mlp_impl!r}; "
-                "valid: 'auto', 'pallas', 'pallas_bwd', 'xla'")
-        # gelu MLPs auto-fuse on TPU (+30% over the XLA chain) for bf16
-        # compute (the kernel is bf16 — f32 models must not silently
-        # degrade); the swiglu kernel measured FLAT vs XLA
-        # (BENCHMARKS.md) so it runs only on explicit mlp_impl="pallas".
-        # "pallas_bwd" (the pallas-backward training path) has no
-        # half-block variant: it skips this fusion and routes LN + Mlp
-        # separately below, with the Mlp's fwd AND bwd in-kernel.
-        route = (self.mlp_impl == "pallas"
-                 if self.use_swiglu else
-                 (self.mlp_impl == "pallas"
-                  or (self.mlp_impl == "auto"
-                      and self.dtype == jnp.bfloat16
-                      and jax.devices()[0].platform == "tpu")))
-        fuse_block = (not self.quant8 and route
-                      and (self.use_swiglu
-                           or self.act in ("gelu", "gelu_new"))
-                      and dp_off)
-        if fuse_block:
-            from smb_vision_tpu.ops.mlp import (
-                mlp_block_forward,
-                swiglu_block_forward,
-            )
-
-            lnw, lnb = _LayerNormParams(self.hidden_size,
-                                        name="norm2")()
-            kinit = trunc_normal_init(self.initializer_range)
-            if self.use_swiglu:
-                w1, b1, w2, b2 = _SwiGLUParams(
-                    self.hidden_size, self.intermediate_size, kinit,
-                    name="mlp")(self.hidden_size)
-            else:
-                w1, b1, w2, b2 = _MlpParams(
-                    self.hidden_size, self.intermediate_size, kinit,
-                    name="mlp")(self.hidden_size)
-            if self.layerscale_value is not None:
-                lam = self.param("layerscale2", nn.initializers.constant(
-                    self.layerscale_value), (self.hidden_size,),
-                    jnp.float32)
-                w2 = w2 * lam[None, :]
-                b2 = b2 * lam
-            if self.use_swiglu:
-                return swiglu_block_forward(x.astype(self.dtype), lnw,
-                                            lnb, w1, b1, w2, b2,
-                                            eps=self.layer_norm_eps,
-                                            impl=self.mlp_impl)
-            return mlp_block_forward(x.astype(self.dtype), lnw, lnb,
-                                     w1, b1, w2, b2, act=self.act,
-                                     eps=self.layer_norm_eps,
-                                     impl=self.mlp_impl)
+        h = Attention(self.hidden_size, self.num_heads,
+                      bias_mode=self.bias_mode, dtype=self.dtype,
+                      attn_impl=self.attn_impl,
+                      initializer_range=self.initializer_range,
+                      sequence_parallel=self.sequence_parallel,
+                      sp_variant=self.sp_variant, quant8=self.quant8,
+                      fused_qkv=self.fused_qkv,
+                      name="attention")(ln("norm1")(x), rope=rope)
+        x = x + dp(scaled("layerscale1", h), deterministic)
 
         if self.use_swiglu:
             h = SwiGLU(self.hidden_size, self.intermediate_size,
@@ -521,8 +310,7 @@ class Block(nn.Module):
             h = Mlp(self.hidden_size, self.intermediate_size, act=self.act,
                     dtype=self.dtype,
                     initializer_range=self.initializer_range,
-                    quant8=self.quant8, mlp_impl=self.mlp_impl,
-                    name="mlp")(ln("norm2")(x))
+                    quant8=self.quant8, name="mlp")(ln("norm2")(x))
         x = x + dp(scaled("layerscale2", h), deterministic)
         return x
 
@@ -532,9 +320,8 @@ class Encoder(nn.Module):
     reference enables this via --gradient_checkpointing, run_mim.sh:34) and
     optional sequence parallelism: tokens sharded over the mesh "model"
     axis. The norms/MLP partition via GSPMD sharding constraints while the
-    attention runs the flash kernel per shard through shard_map
-    (context_parallel_attention / ring_attention) — the round-1 version
-    fell back to O(N^2) XLA attention here."""
+    attention runs per shard through shard_map
+    (context_parallel_attention / ring_attention)."""
 
     num_layers: int
     hidden_size: int
@@ -553,9 +340,7 @@ class Encoder(nn.Module):
     sequence_parallel: bool = False
     sp_variant: str = "gather"
     quant8: bool = False
-    mlp_impl: str = "auto"
     fused_qkv: bool = False
-    glue_impl: str = "auto"
 
     @nn.compact
     def __call__(self, x, rope=None, deterministic: bool = True):
@@ -582,8 +367,7 @@ class Encoder(nn.Module):
                 initializer_range=self.initializer_range,
                 sequence_parallel=self.sequence_parallel,
                 sp_variant=self.sp_variant, quant8=self.quant8,
-                mlp_impl=self.mlp_impl, fused_qkv=self.fused_qkv,
-                glue_impl=self.glue_impl,
+                fused_qkv=self.fused_qkv,
                 name=f"layer_{i}")(x, rope, deterministic)
             if self.sequence_parallel:
                 x = constrain(x)

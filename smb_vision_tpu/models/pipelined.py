@@ -3,7 +3,7 @@ transformer stack through the GPipe schedule (parallel/pipeline.py)
 without changing the parameter layout.
 
 The reference scales depth only by replicating every layer on every GPU
-(DeepSpeed ZeRO); here a model too large for one chip's HBM splits its
+(DeepSpeed ZeRO); here a model too large for one device's memory splits its
 layer stack over a mesh "pipe" axis and streams microbatches through the
 stage ring. Params stay in the HF-compatible per-layer dict layout on
 host — `stack_layer_params` builds the stacked (pipe-sharded) view at
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-import flax.linen as nn
+from smb_vision_tpu import nn
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
@@ -51,8 +51,7 @@ def _cfg_block(cfg, hidden: int, heads: int, inter: int, dt, **over):
     kw = dict(act=cfg.hidden_act,
               bias_mode="qkv" if cfg.qkv_bias else "none",
               layer_norm_eps=cfg.layer_norm_eps, dtype=dt,
-              attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
-              glue_impl=cfg.glue_impl,
+              attn_impl=cfg.attn_impl,
               fused_qkv=cfg.fused_qkv,
               initializer_range=cfg.initializer_range)
     kw.update(over)
@@ -128,8 +127,7 @@ def pipelined_encoder(enc: Encoder, enc_params: dict, x, *, mesh: Mesh,
                   layer_norm_eps=enc.layer_norm_eps,
                   layerscale_value=enc.layerscale_value,
                   use_swiglu=enc.use_swiglu, dtype=enc.dtype,
-                  attn_impl=enc.attn_impl, mlp_impl=enc.mlp_impl,
-                  glue_impl=enc.glue_impl,
+                  attn_impl=enc.attn_impl,
                   initializer_range=enc.initializer_range,
                   quant8=enc.quant8, fused_qkv=enc.fused_qkv)
 
@@ -175,8 +173,7 @@ def videomae_pipeline_encode(config, params: dict, pixel_values, *,
         intermediate_size=cfg.intermediate_size, act=cfg.hidden_act,
         bias_mode="qv" if cfg.qkv_bias else "none",
         layer_norm_eps=cfg.layer_norm_eps, dtype=dt,
-        attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
-        glue_impl=cfg.glue_impl, fused_qkv=cfg.fused_qkv,
+        attn_impl=cfg.attn_impl, fused_qkv=cfg.fused_qkv,
         initializer_range=cfg.initializer_range,
         quant8=cfg.quant8)
     x = pipelined_encoder(enc, p["encoder"], x, mesh=mesh, axis=axis,
@@ -248,7 +245,6 @@ def dinov2_pipeline_encode(config, params: dict, pixel_values, *,
         layerscale_value=cfg.layerscale_value,
         drop_path_rate=cfg.drop_path_rate,
         use_swiglu=cfg.use_swiglu_ffn, dtype=dt, attn_impl=cfg.attn_impl,
-        mlp_impl=cfg.mlp_impl, glue_impl=cfg.glue_impl,
         fused_qkv=cfg.fused_qkv,
         initializer_range=cfg.initializer_range)
     x = pipelined_encoder(enc, p["encoder"], x, mesh=mesh, axis=axis,
@@ -307,7 +303,8 @@ def videomae_pipeline_pretrain(config, params: dict, pixel_values,
     """VideoMAEForPreTraining forward (videomae.py:107-184) with the
     encoder AND decoder stacks pipelined over `axis`; params in the
     stacked layout of `to_pipeline_pretrain_params` (each device holds
-    layers/S of both stacks, so models deeper than one chip's HBM train).
+    layers/S of both stacks, so models deeper than one device's memory
+    train).
     The non-stack glue (patch embed, gathers, enc->dec, norm, head, loss)
     replicates — a fraction of one layer's FLOPs. Matches the dense
     model's loss/logits (tests/test_pipelined_models.py)."""

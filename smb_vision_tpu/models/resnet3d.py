@@ -1,19 +1,18 @@
-"""Inflated-3D (I3D) ResNet tower — flax, TPU-native.
+"""Inflated-3D (I3D) ResNet tower.
 
 The Merlin CT foundation model's image encoder is an I3D-inflated
 ResNet-152 behind the external `merlin` package; the reference embeds CT
 volumes through it on GPU (src/encoders/run_merlin.py:24-48,
 `Merlin(ImageEmbedding=True)` -> (batch, tokens, dim) embeddings). This
-module is a first-party flax implementation of that tower family so the
-Merlin zoo path runs on the TPU compute path like every other encoder
+module is a first-party implementation of that tower family so the
+Merlin zoo path runs on the JAX compute path like every other encoder
 (inference/encoders.py::MerlinEncoder backend="jax") instead of host
 torch.
 
-Design (TPU-first):
+Design:
 - channels-last layout internally — input arrives torch-style
   (B, C, a0, a1, a2) to match the CT pipeline's "CHWD" output and is
-  transposed ONCE at the boundary; all convs run NDHWC, which XLA tiles
-  onto the MXU directly.
+  transposed ONCE at the boundary; all convs run NDHWC.
 - torch-conv geometry: symmetric k//2 padding per axis (torch Conv3d
   default-style `padding=k//2`), stride on the bottleneck's 3x3 (ResNet
   v1.5 / torchvision placement — hassony2-style I3D inflation reads the
@@ -38,7 +37,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import flax.linen as nn
+from smb_vision_tpu import nn
 import jax
 import jax.numpy as jnp
 

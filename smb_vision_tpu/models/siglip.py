@@ -1,10 +1,10 @@
-"""SigLIP vision tower (flax) — TPU-native 2D X-ray encoder.
+"""SigLIP vision tower — 2D X-ray encoder.
 
 The reference wraps the torch SiglipVisionModel with flash-attention-2 on
 GPU for batch X-ray embedding (reference src/encoders/run_siglip.py:49-120).
-Here the tower is a first-party flax model on this framework's compute path
-(shared Block/Encoder with the Pallas attention + fused-MLP kernels), so the
-encoder zoo's 2D path runs on TPU instead of host torch. Architecture
+Here the tower is a first-party model on this framework's compute path
+(shared Block/Encoder and attention), so the encoder zoo's 2D path runs in
+JAX instead of host torch. Architecture
 matches transformers' SiglipVisionTransformer exactly (verified by golden
 parity tests vs the torch implementation, tests/test_siglip.py):
 
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import flax.linen as nn
+from smb_vision_tpu import nn
 import jax.numpy as jnp
 
 from smb_vision_tpu.models.configs import SiglipVisionConfig
@@ -67,13 +67,9 @@ class SiglipMAPHead(nn.Module):
                       name="attention")(probe.astype(self.dtype), kv=x)
         ln = nn.LayerNorm(epsilon=cfg.layer_norm_eps, dtype=self.dtype,
                           param_dtype=jnp.float32, name="layernorm")
-        # 1-token rows: XLA is the right default (the pallas kernel pads
-        # rows to the sublane tile for nothing), but an explicit
-        # cfg.mlp_impl is honored so precision A/Bs cover the head too
-        mlp_impl = "xla" if cfg.mlp_impl == "auto" else cfg.mlp_impl
         h = h + Mlp(cfg.hidden_size, cfg.intermediate_size,
                     act=_act(cfg.hidden_act), dtype=self.dtype,
-                    mlp_impl=mlp_impl, name="mlp")(ln(h))
+                    name="mlp")(ln(h))
         return h[:, 0]
 
 
@@ -118,8 +114,7 @@ class SiglipVisionModel(nn.Module):
                     intermediate_size=cfg.intermediate_size,
                     act=_act(cfg.hidden_act), bias_mode="qkv",
                     layer_norm_eps=cfg.layer_norm_eps, dtype=dtype,
-                    attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
-                    glue_impl=cfg.glue_impl,
+                    attn_impl=cfg.attn_impl,
                     remat=cfg.gradient_checkpointing,
                     initializer_range=0.02, name="encoder")(x)
 

@@ -1,7 +1,8 @@
 """VideoMAE-3D: masked-image-modeling pretraining + classification.
 
 Re-implements the capability of the reference's vendored VideoMAE
-(/root/reference/src/models/videomae/modeling_videomae.py) TPU-first:
+(/root/reference/src/models/videomae/modeling_videomae.py) for static-shape
+JAX:
 
 - Conv3d tubelet embedding as reshape+matmul (ops/patches.py)
 - fixed sincos position table computed once (modeling_videomae.py:95-106)
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-import flax.linen as nn
+from smb_vision_tpu import nn
 import jax
 import jax.numpy as jnp
 
@@ -92,8 +93,7 @@ class VideoMAEModel(nn.Module):
             intermediate_size=cfg.intermediate_size, act=cfg.hidden_act,
             bias_mode="qv" if cfg.qkv_bias else "none",
             layer_norm_eps=cfg.layer_norm_eps, dtype=dt,
-            attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
-            glue_impl=cfg.glue_impl,
+            attn_impl=cfg.attn_impl,
             fused_qkv=cfg.fused_qkv,
             remat=cfg.gradient_checkpointing,
             initializer_range=cfg.initializer_range,
@@ -151,8 +151,7 @@ class VideoMAEForPreTraining(nn.Module):
             intermediate_size=cfg.decoder_intermediate_size,
             act=cfg.hidden_act, bias_mode="qv" if cfg.qkv_bias else "none",
             layer_norm_eps=cfg.layer_norm_eps, dtype=dt,
-            attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
-            glue_impl=cfg.glue_impl,
+            attn_impl=cfg.attn_impl,
             fused_qkv=cfg.fused_qkv,
             remat=cfg.gradient_checkpointing,
             initializer_range=cfg.initializer_range,
@@ -174,8 +173,7 @@ class VideoMAEForPreTraining(nn.Module):
         # For num_channels == 1 the channel-major and channel-minor patch
         # layouts coincide, so the encoder's extraction is reused — the
         # 512^2x320 volume is tiled into patches ONCE per step, not twice
-        # (glue ablation: extract_patches is pure data movement, measured
-        # ~ms-scale per pass at 84M voxels).
+        # (extract_patches is pure data movement over 84M voxels).
         if cfg.num_channels == 1:
             patches = extract_patches(pixel_values, cfg.tubelet_size,
                                       cfg.patch_size, channel_major=True)

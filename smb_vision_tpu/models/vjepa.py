@@ -1,8 +1,9 @@
 """V-JEPA2 for 3D volumes: encoder + predictor + attentive pooler.
 
-Re-implements /root/reference/src/models/vjepa/modeling_vjepa.py TPU-first.
+Re-implements /root/reference/src/models/vjepa/modeling_vjepa.py for
+static-shape JAX.
 
-Key TPU redesign — the *dense* predictor path: in V-JEPA training the
+Key redesign — the *dense* predictor path: in V-JEPA training the
 context and target masks partition the patch grid (context = complement of
 the target blocks, transforms.py:187-194), so the reference's
 gather -> concat -> sort -> attention -> unsort pipeline (:658-746) processes
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-import flax.linen as nn
+from smb_vision_tpu import nn
 import jax
 import jax.numpy as jnp
 
@@ -73,8 +74,7 @@ class VJEPA2Encoder(nn.Module):
             bias_mode="qkv" if cfg.qkv_bias else "none",
             layer_norm_eps=cfg.layer_norm_eps,
             drop_path_rate=cfg.drop_path_rate, dtype=dt,
-            attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
-            glue_impl=cfg.glue_impl,
+            attn_impl=cfg.attn_impl,
             fused_qkv=cfg.fused_qkv,
             remat=cfg.gradient_checkpointing,
             initializer_range=cfg.initializer_range,
@@ -98,8 +98,7 @@ class VJEPA2Predictor(nn.Module):
             bias_mode="qkv" if cfg.qkv_bias else "none",
             layer_norm_eps=cfg.layer_norm_eps,
             drop_path_rate=cfg.drop_path_rate, dtype=dt,
-            attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
-            glue_impl=cfg.glue_impl,
+            attn_impl=cfg.attn_impl,
             fused_qkv=cfg.fused_qkv,
             remat=cfg.gradient_checkpointing,
             initializer_range=cfg.initializer_range, name="stack")
@@ -127,7 +126,7 @@ class VJEPA2Predictor(nn.Module):
         mtok = mask_tokens[mask_index % cfg.pred_num_mask_tokens].astype(dt)
 
         if target_bool is not None:
-            # ---- dense TPU path: context = ~target, natural token order
+            # ---- dense path: context = ~target, natural token order
             x = embed(encoder_hidden_states)
             x = jnp.where(target_bool[..., None], mtok, x)
             n = x.shape[1]
@@ -233,7 +232,6 @@ class VJEPA2AttentivePooler(nn.Module):
             h = Mlp(cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio),
                     act=cfg.hidden_act, dtype=dt,
                     initializer_range=cfg.initializer_range,
-                    mlp_impl=cfg.mlp_impl,
                     name=f"self_layer_{i}_mlp")(
                         ln(f"self_layer_{i}_norm2")(hidden_state))
             hidden_state = res + h
@@ -257,8 +255,7 @@ class VJEPA2AttentivePooler(nn.Module):
         h = res + Mlp(cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio),
                       act=cfg.hidden_act, dtype=dt,
                       initializer_range=cfg.initializer_range,
-                      mlp_impl=cfg.mlp_impl,
-                      name="cross_mlp")(ln("cross_norm2")(h))
+                        name="cross_mlp")(ln("cross_norm2")(h))
         return h[:, 0]
 
 

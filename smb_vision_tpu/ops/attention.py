@@ -1,921 +1,53 @@
-"""Flash attention for TPU (Pallas/Mosaic), with XLA fallback.
+"""Multi-head attention: cuDNN's fused attention on the GPU, XLA elsewhere.
 
-Replaces the reference's flash-attn-2 CUDA dependency
-(/root/reference/Dockerfile:40-43, attn_implementation="flash_attention_2"
-at run_vjepa.py:231 etc.) with a first-party TPU kernel:
+The reference ran flash-attn 2 on NVIDIA cards (attn_implementation=
+"flash_attention_2", reference run_vjepa.py:231). The closest thing on
+Hopper through JAX is cuDNN's fused (flash) attention, forward and
+backward, reached through `jax.nn.dot_product_attention(...,
+implementation="cudnn")`. `attention_backend` picks it from what the call
+can observe (platform, dtype, head dim, bias); every other call runs
+`xla_attention`, the plain reference that materialises f32 scores.
 
-- non-causal, full bidirectional attention (ViT workloads)
-- O(N) memory, f32 accumulation, custom VJP (dq and dkv pallas passes)
-- optional additive kv bias handled by the XLA path (masked variants route
-  there; all dense training paths hit the Pallas kernel)
-
-Round-2 kernel design (measured on v5e at N=20480, d=64, see
-BENCHMARKS.md):
-- **No running max** ("nm"): softmax is shift-invariant, so the shift C is
-  fixed per q block from the FIRST kv block's max and never rescaled —
-  p = exp2(s' - C) with s' = (q * scale*log2e) @ k^T. Exact softmax; the
-  only numerical risk is overflow if a later block beats C by >126 in
-  log2 units (~87 in nat units) — impossible for LayerNormed ViT scores
-  (O(10)). Kills the running-max bookkeeping and the acc alpha-rescale.
-- **Transposed accumulation ("t")**: p @ v with a width-64 output runs at
-  ~1/3 the speed of the width-N q@k^T matmul (half-width MXU output
-  tiles). Accumulate o^T = v1^T @ p^T instead: contraction over the kv
-  block (full K), output (d+8, bq) — full-width tiles. One (d, bq)
-  transpose per q block at the end.
-- **MXU-fused denominator**: v1 = [v | 1 | 0-pad], so row d of the
-  accumulator collects sum(p) on the MXU — no VPU reduction pass.
-- **Sub-block unroll ("u4")**: independent kv sub-block chains per grid
-  step give the scheduler independent MXU/VPU work to overlap
-  (_pick_unroll; u4 beat u2 by 3-12% in same-session A/B sweeps).
-- exp2 with the scale folded into q (saves a full N^2 VPU multiply).
-
-Measured: fwd 13.48 ms/layer-equiv with the round-3 u8 unroll (u4
-13.6-15.7 same-session; ViT-Base d64, 20480 tokens) = ~96 TFLOP/s = 48%
-of v5e peak, vs 21.1 ms (31%) for the round-1 online-softmax kernel and
-175 ms for the official jax flash kernel at the same shape; int8-score
-fwd 10.16 ms (u8 + bq5120); fwd+bwd 30.7 ms/layer = 147 TFLOP/s
-effective (bwd stays u4 — u8 is flat-to-negative there).
-
-The backward applies the same transposed-output trick and sub-block
-unroll to dq, dk and dv (all have width-d outputs in the naive layout).
-
-Layout: q, k, v are (batch*heads, seq, head_dim).
+Layout everywhere: q (B, Nq, H, D), k and v (B, Nk, H, D).
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-_LANES = 128
+# cuDNN's fused attention on Hopper: bf16/fp16, head dim a multiple of 8 and
+# at most 256 (jax/_src/cudnn/fused_attention_stablehlo.py
+# check_is_flash_attention)
+_FUSED_DTYPES = (jnp.bfloat16, jnp.float16)
+_FUSED_MAX_HEAD_DIM = 256
+# the implementation `jax.nn.dot_product_attention` is asked for when the
+# resolver says "cudnn"; CPU tests substitute "xla" to run the same wrapper
+_FUSED_IMPLEMENTATION = "cudnn"
+
+
+def _platform() -> str:
+    return jax.default_backend()
+
+
+def attention_backend(q, k, bias=None) -> str:
+    """"cudnn" when the fused kernel takes this call, else "xla"."""
+    d = q.shape[-1]
+    fused = (_platform() == "gpu" and bias is None
+             and q.dtype == k.dtype
+             and any(q.dtype == t for t in _FUSED_DTYPES)
+             and d % 8 == 0 and d <= _FUSED_MAX_HEAD_DIM)
+    return "cudnn" if fused else "xla"
 
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _pick_unroll(block_k: int, i8: bool = False, fwd: bool = False) -> int:
-    """Sub-block unroll default: u4 beat u2 in same-session A/B sweeps at
-    the d64 flagship shape (bf16 13.76 vs 14.19 ms/layer, int8 10.71 vs
-    12.16 — scripts/kexp/{bf16,i8}_sweep.py). The FORWARD kernels go one
-    deeper: u8 beat u4 in the round-3 sweeps through the shipped kernels
-    (int8 10.33 vs 11.33 ms/layer, bq5120 10.16 — scripts/kexp/i8v3.py;
-    bf16 fwd 13.48 vs 15.74 — scripts/kexp/bf16_u8.py) — more independent
-    qk/exp/pv chains for Mosaic to overlap. The BACKWARD passes stay u4:
-    fwd+bwd with u8 everywhere measured flat (30.85 vs 30.86), i.e. the
-    bwd loses what the fwd gains — its dp/ds chains already saturate the
-    scheduler. Explicit round-robin interleave and cheap-exp variants
-    both LOST (scripts/kexp/i8v2.py), so deeper unroll is the lever."""
-    if (i8 or fwd) and block_k % 8 == 0 and block_k >= 2048:
-        return 8
-    if block_k % 4 == 0 and block_k >= 1024:
-        return 4
-    if block_k % 2 == 0 and block_k >= 256:
-        return 2
-    return 1
-
-
-def _lse_foldable(nq: int, block_q: int) -> bool:
-    """Folded (bh, nq/128, 128) lse layout legality: Mosaic wants the
-    block's sublane dim (block_q/128) divisible by 8 or equal to the
-    array's (nq/128)."""
-    return (nq % 128 == 0 and block_q % 128 == 0
-            and ((block_q // 128) % 8 == 0 or block_q == nq))
-
-
-def _zero_pad_rows(x, start: int, limit: int):
-    """Zero rows whose global index >= limit (sanitises OOB block padding,
-    which may read as NaN/garbage; 0*NaN would otherwise poison matmul
-    accumulations). `start` is the block's global row offset."""
-    ids = start + jax.lax.broadcasted_iota(jnp.int32, x.shape, dimension=0)
-    return jnp.where(ids < limit, x, 0.0)
-
-
-# ---------------------------------------------------------------------------
-# Forward kernel (nm + transposed + fused denominator + 2-block unroll)
-# ---------------------------------------------------------------------------
-
-def _fwd_kernel(q_ref, k_ref, v1_ref, o_ref, lse_ref, c_scr, acc_scr,
-                *, block_k: int, kv_len: int, unroll: int,
-                lse_folded: bool):
-    ik = pl.program_id(2)
-    nk = pl.num_programs(2)
-
-    q = q_ref[0]                                       # (bq, d) pre-scaled
-    d = o_ref.shape[-1]
-    sub = block_k // unroll
-
-    ragged = kv_len % block_k != 0
-    sts = []
-    for u in range(unroll):
-        k_u = k_ref[0][u * sub:(u + 1) * sub]
-        base = ik * block_k + u * sub
-        if ragged:
-            # OOB padding rows may read NaN/garbage; 0*NaN poisons matmul
-            # accumulations downstream — sanitize before use
-            k_u = _zero_pad_rows(k_u, base, kv_len)
-        # keep matmul operands in bf16: the MXU runs native bf16 with f32
-        # accumulation; f32 operands force the multi-pass path (~6x slower)
-        st = jax.lax.dot_general(k_u, q, (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.float32)
-        if ragged:
-            kv_ids = base + jax.lax.broadcasted_iota(
-                jnp.int32, st.shape, dimension=0)
-            st = jnp.where(kv_ids < kv_len, st, NEG_INF)
-        sts.append(st)
-
-    @pl.when(ik == 0)
-    def _init():
-        m = jnp.max(sts[0], axis=0, keepdims=True)
-        for st in sts[1:]:
-            m = jnp.maximum(m, jnp.max(st, axis=0, keepdims=True))
-        c_scr[:] = jnp.broadcast_to(m, c_scr.shape)
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-
-    c = c_scr[:1]                                      # (1, bq)
-    acc = acc_scr[:]
-    for u in range(unroll):
-        v_u = v1_ref[0][u * sub:(u + 1) * sub]         # (sub, d+8)
-        if ragged:
-            v_u = _zero_pad_rows(v_u, ik * block_k + u * sub, kv_len)
-        pt = jnp.exp2(sts[u] - c).astype(v_u.dtype)    # (sub, bq) bf16
-        acc += jax.lax.dot_general(v_u, pt, (((0,), (0,)), ((), ())),
-                                   preferred_element_type=jnp.float32)
-    acc_scr[:] = acc                                   # (d+8, bq)
-
-    @pl.when(ik == nk - 1)
-    def _finish():
-        l = acc_scr[d:d + 1]                           # (1, bq) = sum(p)
-        safe = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0] = (acc_scr[:d] / safe).T.astype(o_ref.dtype)
-        # lse in log2 units incl. the folded scale: p = exp2(s' - lse).
-        # Folded layout (bh, nq/128, 128) when nq allows: a trailing
-        # size-1 dim pads to a full (8,128) tile — a 128x memory/traffic
-        # blowup, observed as 144MB per layer in training steps.
-        row = (c + jnp.log2(safe))[0]                  # (bq,)
-        if lse_folded:
-            lse_ref[0] = row.reshape(lse_ref.shape[1:])
-        else:
-            lse_ref[0] = row[:, None]
-
-
-def _fwd(q, k, v, *, scale, block_q, block_k, interpret=False,
-         unroll=None):
-    """q, k, v: (bh, n, d) bf16. Returns (out (bh, nq, d), lse2 (bh, nq))
-    with lse2 in log2 units of the pre-scaled scores."""
-    bh, nq, d = q.shape
-    kv = k.shape[1]
-    qs = (q.astype(jnp.float32) * (scale * LOG2E)).astype(q.dtype)
-    # v1 = [v | 1 | 0-pad]: accumulator row d collects the denominator
-    ones = jnp.ones((bh, kv, 1), v.dtype)
-    zpad = jnp.zeros((bh, kv, 7), v.dtype)
-    v1 = jnp.concatenate([v, ones, zpad], axis=-1)
-    if unroll is None:
-        unroll = _pick_unroll(block_k, fwd=True)
-    folded = _lse_foldable(nq, block_q)
-
-    grid = (bh, _cdiv(nq, block_q), _cdiv(kv, block_k))
-    if folded:
-        lse_spec = pl.BlockSpec((1, block_q // 128, 128),
-                                lambda b, iq, ik: (b, iq, 0))
-        lse_shape = jax.ShapeDtypeStruct((bh, nq // 128, 128), jnp.float32)
-    else:
-        lse_spec = pl.BlockSpec((1, block_q, 1), lambda b, iq, ik: (b, iq, 0))
-        lse_shape = jax.ShapeDtypeStruct((bh, nq, 1), jnp.float32)
-    out, lse = pl.pallas_call(
-        functools.partial(_fwd_kernel, block_k=block_k, kv_len=kv,
-                          unroll=unroll, lse_folded=folded),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, block_q, d), lambda b, iq, ik: (b, iq, 0)),
-            pl.BlockSpec((1, block_k, d), lambda b, iq, ik: (b, ik, 0)),
-            pl.BlockSpec((1, block_k, d + 8), lambda b, iq, ik: (b, ik, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, block_q, d), lambda b, iq, ik: (b, iq, 0)),
-            lse_spec,
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((bh, nq, d), q.dtype),
-            lse_shape,
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((8, block_q), jnp.float32),
-            pltpu.VMEM((d + 8, block_q), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=110 * 2 ** 20),
-        interpret=interpret,
-    )(qs, k, v1)
-    return out, lse
-
-
-# ---------------------------------------------------------------------------
-# int8-score forward (inference fast path, impl="pallas_int8")
-# ---------------------------------------------------------------------------
-# q@k^T on the MXU's 2x-rate int8 path with per-head symmetric scales;
-# the scalar correction sq*sk is applied to the f32 scores before exp
-# (softmax is not scale-invariant, so it cannot fold away).
-# Accuracy: rel err ~0.5-0.9% vs f32 softmax — the same order as the bf16
-# operands themselves (8-bit mantissa). 10.16 vs 13.5 ms/layer at the
-# flagship d64 shape (bq5120/bk2048/u8, round-3 sweep i8v3.py).
-# Forward-only (no VJP): inference embedding path.
-#
-# pv=True additionally runs p@v on the int8 MXU: per-sub-block per-column
-# score max sm requantizes p as p8 = floor(exp2(st - sm + log2 127) + .5)
-# — bounded <=127 by construction, and the 127 folds into the exp shift so
-# the only extra VPU work is the (8:1) max reduction and the int8 cast.
-# The (d+8, bq) int32 sub-result is rescaled by exp2(sm - C) per column;
-# the per-head v scale and the 127s cancel into one scalar at the end:
-# o = acc[:d]/acc[d] * (127 * sv).
-
-LOG127 = math.log2(127.0)
-
-
-def _fwd_i8_kernel(q_ref, k_ref, v1_ref, sq_ref, sk_ref, sv_ref, o_ref,
-                   c_scr, acc_scr, *, block_k: int, kv_len: int,
-                   unroll: int, pv: bool):
-    ik = pl.program_id(2)
-    nk = pl.num_programs(2)
-
-    q = q_ref[0]                                       # (bq, d) int8
-    # per-HEAD scalar scales from SMEM: one fused multiply, no layout
-    # gymnastics (per-token scales would need a lane->sublane relayout
-    # Mosaic does not support)
-    b = pl.program_id(0)
-    scale = sk_ref[b] * sq_ref[b]
-    sub = block_k // unroll
-    ragged = kv_len % block_k != 0
-
-    # sub-block unroll (same trick as the bf16 kernel): independent int8
-    # matmul + f32 exp chains let Mosaic overlap MXU and VPU — measured
-    # 12.6 -> 10.65 ms/layer at the d64 flagship shape (61% of bf16 peak)
-    sts = []
-    for u in range(unroll):
-        k_u = k_ref[0][u * sub:(u + 1) * sub]
-        st = jax.lax.dot_general(k_u, q, (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-        st = st.astype(jnp.float32) * scale
-        if ragged:
-            kv_ids = (ik * block_k + u * sub) + jax.lax.broadcasted_iota(
-                jnp.int32, st.shape, dimension=0)
-            st = jnp.where(kv_ids < kv_len, st, NEG_INF)
-        sts.append(st)
-
-    @pl.when(ik == 0)
-    def _init():
-        m = jnp.max(sts[0], axis=0, keepdims=True)
-        for st in sts[1:]:
-            m = jnp.maximum(m, jnp.max(st, axis=0, keepdims=True))
-        c_scr[:] = jnp.broadcast_to(m, c_scr.shape)
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-
-    c = c_scr[:1]
-    acc = acc_scr[:]
-    for u in range(unroll):
-        v_u = v1_ref[0][u * sub:(u + 1) * sub]
-        if pv:
-            # v_u is pre-quantized int8 (OOB rows already zero on the
-            # host side); requantize p per sub-block against its own max
-            st = sts[u]
-            sm = jnp.max(st, axis=0, keepdims=True)    # (1, bq)
-            p8 = (jnp.exp2(st - sm + LOG127) + 0.5).astype(jnp.int8)
-            mat = jax.lax.dot_general(v_u, p8, (((0,), (0,)), ((), ())),
-                                      preferred_element_type=jnp.int32)
-            # fully-masked sub-block: sm = NEG_INF -> factor 0 kills any
-            # garbage from the NaN-input int8 cast (ints carry no NaN)
-            acc += mat.astype(jnp.float32) * jnp.exp2(sm - c)
-        else:
-            if ragged:
-                v_u = _zero_pad_rows(v_u, ik * block_k + u * sub, kv_len)
-            pt = jnp.exp2(sts[u] - c).astype(v_u.dtype)
-            acc += jax.lax.dot_general(v_u, pt, (((0,), (0,)), ((), ())),
-                                       preferred_element_type=jnp.float32)
-    acc_scr[:] = acc
-
-    @pl.when(ik == nk - 1)
-    def _finish():
-        d = o_ref.shape[-1]
-        l = acc_scr[d:d + 1]
-        l = jnp.where(l == 0.0, 1.0, l)
-        num = acc_scr[:d] * (127.0 * sv_ref[b]) if pv else acc_scr[:d]
-        o_ref[0] = (num / l).T.astype(o_ref.dtype)
-
-
-def _fwd_i8(q, k, v, *, scale, block_q, block_k, interpret=False,
-            pv=False, unroll=None):
-    bh, nq, d = q.shape
-    kv = k.shape[1]
-    # per-head symmetric scales (LayerNormed q/k have stable row norms,
-    # so per-head loses little vs per-token — rel err ~0.5% either way)
-    qf = q.astype(jnp.float32) * (scale * LOG2E)
-    sq = jnp.max(jnp.abs(qf), axis=(1, 2), keepdims=True) / 127.0
-    sq = jnp.where(sq == 0, 1.0, sq)
-    q8 = jnp.clip(jnp.round(qf / sq), -127, 127).astype(jnp.int8)
-    kf = k.astype(jnp.float32)
-    sk = jnp.max(jnp.abs(kf), axis=(1, 2), keepdims=True) / 127.0
-    sk = jnp.where(sk == 0, 1.0, sk)
-    k8 = jnp.clip(jnp.round(kf / sk), -127, 127).astype(jnp.int8)
-    sq = sq.reshape(bh)
-    sk = sk.reshape(bh)
-    if pv:
-        vf = v.astype(jnp.float32)
-        sv = jnp.max(jnp.abs(vf), axis=(1, 2), keepdims=True) / 127.0
-        sv = jnp.where(sv == 0, 1.0, sv)
-        v8 = jnp.clip(jnp.round(vf / sv), -127, 127).astype(jnp.int8)
-        sv = sv.reshape(bh)
-        ones = jnp.full((bh, kv, 1), 127, jnp.int8)    # own scale 1/127,
-        zpad = jnp.zeros((bh, kv, 7), jnp.int8)        # cancels in o=n/l
-        v1 = jnp.concatenate([v8, ones, zpad], axis=-1)
-    else:
-        sv = jnp.ones((bh,), jnp.float32)
-        ones = jnp.ones((bh, kv, 1), v.dtype)
-        zpad = jnp.zeros((bh, kv, 7), v.dtype)
-        v1 = jnp.concatenate([v, ones, zpad], axis=-1)
-    if kv % block_k != 0:
-        # zero OOB padding rows on the host side (cheap: fused into the
-        # concatenate); the pv kernel cannot zero int8 rows in-loop
-        # without an extra where-pass
-        pad = _cdiv(kv, block_k) * block_k - kv
-        v1 = jnp.pad(v1, ((0, 0), (0, pad), (0, 0)))
-    if unroll is None:
-        unroll = _pick_unroll(block_k, i8=True)
-    grid = (bh, _cdiv(nq, block_q), _cdiv(kv, block_k))
-    return pl.pallas_call(
-        functools.partial(_fwd_i8_kernel, block_k=block_k, kv_len=kv,
-                          unroll=unroll, pv=pv),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, block_q, d), lambda b, iq, ik: (b, iq, 0)),
-            pl.BlockSpec((1, block_k, d), lambda b, iq, ik: (b, ik, 0)),
-            pl.BlockSpec((1, block_k, d + 8), lambda b, iq, ik: (b, ik, 0)),
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # sq (bh,) whole
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # sk (bh,) whole
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # sv (bh,) whole
-        ],
-        out_specs=pl.BlockSpec((1, block_q, d), lambda b, iq, ik: (b, iq, 0)),
-        out_shape=jax.ShapeDtypeStruct((bh, nq, d), v.dtype),
-        scratch_shapes=[
-            pltpu.VMEM((8, block_q), jnp.float32),
-            pltpu.VMEM((d + 8, block_q), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=110 * 2 ** 20),
-        interpret=interpret,
-    )(q8, k8, v1, sq, sk, sv)
-
-
-# ---------------------------------------------------------------------------
-# SPMD entries: pallas_call has no GSPMD rule — a bare kernel under pjit
-# gets all-gathered and computed replicated on every chip. These wrappers
-# (ops/partition.py) declare the batch*heads leading dim partitionable so
-# dp/fsdp-sharded activations run the kernel per shard. Inside shard_map
-# (SP/ring/pipeline) they are transparent.
-# ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=None)
-def _fwd_sharded(scale, block_q, block_k, interpret):
-    from smb_vision_tpu.ops.partition import dim0_partitioned
-
-    return dim0_partitioned(
-        lambda q, k, v: _fwd(q, k, v, scale=scale, block_q=block_q,
-                             block_k=block_k, interpret=interpret),
-        sharded_args=(0, 1, 2))
-
-
-@functools.lru_cache(maxsize=None)
-def _fwd_i8_sharded(scale, block_q, block_k, interpret, pv):
-    from smb_vision_tpu.ops.partition import dim0_partitioned
-
-    return dim0_partitioned(
-        lambda q, k, v: _fwd_i8(q, k, v, scale=scale, block_q=block_q,
-                                block_k=block_k, interpret=interpret,
-                                pv=pv),
-        sharded_args=(0, 1, 2))
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_sharded(scale, block_q, block_k, interpret, has_glse,
-                 i8=False):
-    from smb_vision_tpu.ops.partition import dim0_partitioned
-
-    if has_glse:
-        fn = lambda q, k, v, out, lse, g, g_lse: _bwd(  # noqa: E731
-            scale, block_q, block_k, interpret, (q, k, v, out, lse), g,
-            g_lse=g_lse, i8=i8)
-        n_args = 7
-    else:
-        fn = lambda q, k, v, out, lse, g: _bwd(  # noqa: E731
-            scale, block_q, block_k, interpret, (q, k, v, out, lse), g,
-            i8=i8)
-        n_args = 6
-    return dim0_partitioned(fn, sharded_args=tuple(range(n_args)))
-
-
-# ---------------------------------------------------------------------------
-# Backward kernels
-# ---------------------------------------------------------------------------
-# Standard flash-attention backward split in two passes, both with
-# transposed width-d accumulations (width-d outputs are the slow MXU shape):
-#   dq pass:  grid (bh, nq, nk): dq^T (d, bq) += k^T ds^T  (contraction bk)
-#   dkv pass: grid (bh, nk, nq): dv^T (d, bk) += do^T p,
-#                                dk^T (d, bk) += qs^T ds   (contraction bq)
-# delta_i = rowsum(dO_i * O_i) is precomputed in plain XLA (cheap, fusable).
-# Scores are recomputed from the pre-scaled qs; p = exp2(s' - lse2).
-
-def _bwd_dq_kernel(qs_ref, k_ref, v_ref, do_ref, lse_ref, delta_ref, dq_ref,
-                   acc_scr, *, scale: float, block_k: int, kv_len: int,
-                   unroll: int):
-    ik = pl.program_id(2)
-    nk = pl.num_programs(2)
-
-    @pl.when(ik == 0)
-    def _init():
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-
-    qs = qs_ref[0]                                      # (bq, d) pre-scaled
-    lse = lse_ref[0]                                    # (bq, 1) log2 units
-    do = do_ref[0]                                      # (bq, d)
-    delta = delta_ref[0]                                # (bq, 1)
-    sub = block_k // unroll
-    ragged = kv_len % block_k != 0
-
-    # sub-block unroll: independent (s, exp, dp, ds, acc) chains per
-    # kv sub-block let Mosaic overlap MXU and VPU work (same trick as
-    # the fwd kernels)
-    acc = acc_scr[:]
-    for u in range(unroll):
-        base = ik * block_k + u * sub
-        k_u = k_ref[0][u * sub:(u + 1) * sub]           # (sub, d)
-        v_u = v_ref[0][u * sub:(u + 1) * sub]
-        if ragged:
-            k_u = _zero_pad_rows(k_u, base, kv_len)
-            v_u = _zero_pad_rows(v_u, base, kv_len)
-        s = jax.lax.dot_general(qs, k_u, (((1,), (1,)), ((), ())),
-                                preferred_element_type=jnp.float32)
-        if ragged:
-            kv_ids = base + jax.lax.broadcasted_iota(
-                jnp.int32, s.shape, dimension=1)
-            s = jnp.where(kv_ids < kv_len, s, NEG_INF)
-        p = jnp.exp2(s - lse)                           # (bq, sub)
-        dp = jax.lax.dot_general(do, v_u, (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.float32)
-        ds = (p * (dp - delta)).astype(qs.dtype)        # (bq, sub) bf16
-        # dq^T += k^T ds^T: contraction over sub (full), output (d, bq)
-        acc += jax.lax.dot_general(k_u, ds, (((0,), (1,)), ((), ())),
-                                   preferred_element_type=jnp.float32)
-    acc_scr[:] = acc
-
-    @pl.when(ik == nk - 1)
-    def _finish():
-        dq_ref[0] = (acc_scr[:] * scale).T.astype(dq_ref.dtype)
-
-
-def _bwd_dkv_kernel(qs_ref, k_ref, v_ref, do_ref, lse_ref, delta_ref,
-                    dk_ref, dv_ref, dk_scr, dv_scr,
-                    *, block_q: int, block_k: int, q_len: int, kv_len: int,
-                    dkv_unroll: int):
-    iq = pl.program_id(2)
-    nq = pl.num_programs(2)
-    ik = pl.program_id(1)
-
-    @pl.when(iq == 0)
-    def _init():
-        dk_scr[:] = jnp.zeros_like(dk_scr)
-        dv_scr[:] = jnp.zeros_like(dv_scr)
-
-    k = k_ref[0]                                        # (bk, d)
-    bq = qs_ref.shape[1]
-    sub = bq // dkv_unroll
-    ragged_q = q_len % block_q != 0
-    ragged_k = kv_len % block_k != 0
-
-    # sub-block unroll along bq: independent (s, exp, dp, ds, dv/dk-acc)
-    # chains per q sub-block (same MXU/VPU-overlap trick as the fwd)
-    dv_acc = dv_scr[:]
-    dk_acc = dk_scr[:]
-    for u in range(dkv_unroll):
-        base = iq * block_q + u * sub
-        qs = qs_ref[0][u * sub:(u + 1) * sub]           # (sub, d)
-        do = do_ref[0][u * sub:(u + 1) * sub]
-        lse = lse_ref[0].reshape(bq, 1)[u * sub:(u + 1) * sub]
-        delta = delta_ref[0][u * sub:(u + 1) * sub]
-        if ragged_q:
-            qs = _zero_pad_rows(qs, base, q_len)
-            do = _zero_pad_rows(do, base, q_len)
-            lse = _zero_pad_rows(lse, base, q_len)
-            delta = _zero_pad_rows(delta, base, q_len)
-        s = jax.lax.dot_general(qs, k, (((1,), (1,)), ((), ())),
-                                preferred_element_type=jnp.float32)
-        if ragged_k:
-            kv_ids = ik * block_k + jax.lax.broadcasted_iota(
-                jnp.int32, s.shape, dimension=1)
-            s = jnp.where(kv_ids < kv_len, s, NEG_INF)
-
-        p = jnp.exp2(s - lse)                           # (sub, bk)
-        if ragged_q:
-            p = _zero_pad_rows(p, base, q_len)
-        p16 = p.astype(qs.dtype)
-
-        # dv^T += do^T p: contraction over sub (full), output (d, bk)
-        dv_acc += jax.lax.dot_general(do, p16, (((0,), (0,)), ((), ())),
-                                      preferred_element_type=jnp.float32)
-        # ds = p * (dP - delta);  dk^T += qs^T ds (scale folded into qs)
-        dp = jax.lax.dot_general(do, v_ref[0], (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.float32)
-        ds = (p * (dp - delta)).astype(qs.dtype)
-        dk_acc += jax.lax.dot_general(qs, ds, (((0,), (0,)), ((), ())),
-                                      preferred_element_type=jnp.float32)
-    dv_scr[:] = dv_acc
-    dk_scr[:] = dk_acc
-
-    @pl.when(iq == nq - 1)
-    def _finish():
-        # qs carries scale*log2e; dk wants ds^T q * scale -> divide log2e
-        dk_ref[0] = (dk_scr[:] * (1.0 / LOG2E)).T.astype(dk_ref.dtype)
-        dv_ref[0] = dv_scr[:].T.astype(dv_ref.dtype)
-
-
-def _bwd_dq_i8_kernel(q8_ref, k8_ref, v8_ref, do8_ref, kbf_ref, lse_ref,
-                      delta_ref, sqk_ref, sdv_ref, dq_ref, acc_scr, *,
-                      scale: float, block_k: int, kv_len: int,
-                      unroll: int):
-    """dq pass with the score recompute s and dp = do@v^T on the int8
-    MXU (2x rate) — round-5 VERDICT #2 probe. Per-head symmetric scales
-    as in the int8 forward; ds and the dq accumulation stay bf16 (k
-    arrives twice: int8 for s, bf16 for the accumulation)."""
-    ik = pl.program_id(2)
-    nk = pl.num_programs(2)
-    b = pl.program_id(0)
-
-    @pl.when(ik == 0)
-    def _init():
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-
-    q8 = q8_ref[0]                                      # (bq, d) int8
-    do8 = do8_ref[0]
-    lse = lse_ref[0]
-    delta = delta_ref[0]
-    s_qk = sqk_ref[b]
-    s_dv = sdv_ref[b]
-    sub = block_k // unroll
-    ragged = kv_len % block_k != 0
-
-    acc = acc_scr[:]
-    for u in range(unroll):
-        base = ik * block_k + u * sub
-        k8_u = k8_ref[0][u * sub:(u + 1) * sub]         # (sub, d) int8
-        v8_u = v8_ref[0][u * sub:(u + 1) * sub]
-        kbf_u = kbf_ref[0][u * sub:(u + 1) * sub]       # (sub, d) bf16
-        s = jax.lax.dot_general(q8, k8_u, (((1,), (1,)), ((), ())),
-                                preferred_element_type=jnp.int32)
-        s = s.astype(jnp.float32) * s_qk                # (bq, sub) log2u
-        if ragged:
-            # int8 OOB padding is finite garbage (ints carry no NaN) —
-            # masking the dequantized scores to NEG_INF kills it via p=0
-            kv_ids = base + jax.lax.broadcasted_iota(
-                jnp.int32, s.shape, dimension=1)
-            s = jnp.where(kv_ids < kv_len, s, NEG_INF)
-            kbf_u = _zero_pad_rows(kbf_u, base, kv_len)
-        p = jnp.exp2(s - lse)
-        dp = jax.lax.dot_general(do8, v8_u, (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-        dp = dp.astype(jnp.float32) * s_dv
-        ds = (p * (dp - delta)).astype(kbf_u.dtype)     # (bq, sub) bf16
-        acc += jax.lax.dot_general(kbf_u, ds, (((0,), (1,)), ((), ())),
-                                   preferred_element_type=jnp.float32)
-    acc_scr[:] = acc
-
-    @pl.when(ik == nk - 1)
-    def _finish():
-        dq_ref[0] = (acc_scr[:] * scale).T.astype(dq_ref.dtype)
-
-
-def _bwd_dkv_i8_kernel(q8_ref, k8_ref, v8_ref, do8_ref, qsbf_ref,
-                       dobf_ref, lse_ref, delta_ref, sqk_ref, sdv_ref,
-                       dk_ref, dv_ref, dk_scr, dv_scr, *, block_q: int,
-                       block_k: int, q_len: int, kv_len: int,
-                       dkv_unroll: int):
-    """dkv pass with s and dp on the int8 MXU; the dv and dk
-    accumulations stay bf16 (qs/do arrive twice)."""
-    iq = pl.program_id(2)
-    nq = pl.num_programs(2)
-    ik = pl.program_id(1)
-    b = pl.program_id(0)
-
-    @pl.when(iq == 0)
-    def _init():
-        dk_scr[:] = jnp.zeros_like(dk_scr)
-        dv_scr[:] = jnp.zeros_like(dv_scr)
-
-    k8 = k8_ref[0]                                      # (bk, d) int8
-    v8 = v8_ref[0]
-    s_qk = sqk_ref[b]
-    s_dv = sdv_ref[b]
-    bq = q8_ref.shape[1]
-    sub = bq // dkv_unroll
-    ragged_q = q_len % block_q != 0
-    ragged_k = kv_len % block_k != 0
-
-    dv_acc = dv_scr[:]
-    dk_acc = dk_scr[:]
-    for u in range(dkv_unroll):
-        base = iq * block_q + u * sub
-        q8_u = q8_ref[0][u * sub:(u + 1) * sub]
-        do8_u = do8_ref[0][u * sub:(u + 1) * sub]
-        qsbf = qsbf_ref[0][u * sub:(u + 1) * sub]
-        dobf = dobf_ref[0][u * sub:(u + 1) * sub]
-        lse = lse_ref[0].reshape(bq, 1)[u * sub:(u + 1) * sub]
-        delta = delta_ref[0][u * sub:(u + 1) * sub]
-        if ragged_q:
-            qsbf = _zero_pad_rows(qsbf, base, q_len)
-            dobf = _zero_pad_rows(dobf, base, q_len)
-            lse = _zero_pad_rows(lse, base, q_len)
-            delta = _zero_pad_rows(delta, base, q_len)
-        s = jax.lax.dot_general(q8_u, k8, (((1,), (1,)), ((), ())),
-                                preferred_element_type=jnp.int32)
-        s = s.astype(jnp.float32) * s_qk                # (sub, bk)
-        if ragged_k:
-            kv_ids = ik * block_k + jax.lax.broadcasted_iota(
-                jnp.int32, s.shape, dimension=1)
-            s = jnp.where(kv_ids < kv_len, s, NEG_INF)
-
-        p = jnp.exp2(s - lse)
-        if ragged_q:
-            # OOB int8 q rows are finite garbage; their p rows may be
-            # huge-but-finite — zero them exactly like the bf16 kernel
-            p = _zero_pad_rows(p, base, q_len)
-        p16 = p.astype(qsbf.dtype)
-
-        dv_acc += jax.lax.dot_general(dobf, p16, (((0,), (0,)), ((), ())),
-                                      preferred_element_type=jnp.float32)
-        dp = jax.lax.dot_general(do8_u, v8, (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-        dp = dp.astype(jnp.float32) * s_dv
-        ds = (p * (dp - delta)).astype(qsbf.dtype)
-        dk_acc += jax.lax.dot_general(qsbf, ds, (((0,), (0,)), ((), ())),
-                                      preferred_element_type=jnp.float32)
-    dv_scr[:] = dv_acc
-    dk_scr[:] = dk_acc
-
-    @pl.when(iq == nq - 1)
-    def _finish():
-        dk_ref[0] = (dk_scr[:] * (1.0 / LOG2E)).T.astype(dk_ref.dtype)
-        dv_ref[0] = dv_scr[:].T.astype(dv_ref.dtype)
-
-
-def _quant_per_head(x):
-    """Symmetric per-head int8 quantization (as the int8 forward)."""
-    s = jnp.max(jnp.abs(x), axis=(1, 2), keepdims=True) / 127.0
-    s = jnp.where(s == 0, 1.0, s)
-    x8 = jnp.clip(jnp.round(x / s), -127, 127).astype(jnp.int8)
-    return x8, s.reshape(x.shape[0])
-
-
-def _bwd(scale, block_q, block_k, interpret, res, g, g_lse=None,
-         i8=False):
-    q, k, v, out, lse = res
-    bh, nq, d = q.shape
-    kv = k.shape[1]
-    do = g
-    qs = (q.astype(jnp.float32) * (scale * LOG2E)).astype(q.dtype)
-    # the RESIDUAL lse is stored folded (bh, nq/128, 128) to avoid the
-    # 128x lane padding between fwd and bwd (what blew up remat memory);
-    # the bwd operands unfold it transiently in XLA — a reused scratch
-    # buffer, not a per-layer residual
-    if lse.ndim == 3 and lse.shape[-1] == 128:
-        lse = lse.reshape(bh, nq)[..., None]
-    delta = jnp.sum(do.astype(jnp.float32) * out.astype(jnp.float32),
-                    axis=-1, keepdims=True)
-    if g_lse is not None:
-        # joint VJP of (out, lse2): d lse_nat/ds_j = p_j, so the lse
-        # cotangent folds into the delta term — ds = p*(dp - delta +
-        # g_lse_nat) = p*(dp - (delta - g_lse_nat)) — and the kernels run
-        # unchanged. lse2 is in log2 units (lse2 = LOG2E * lse_nat), hence
-        # the LOG2E factor on its cotangent.
-        g_lse = g_lse.reshape(bh, nq)[..., None]
-        delta = delta - g_lse.astype(jnp.float32) * LOG2E
-    q_aux_spec = lambda b, iq, ik: (b, iq, 0)  # noqa: E731
-    aux_block = (1, block_q, 1)
-
-    if i8:
-        qf = q.astype(jnp.float32) * (scale * LOG2E)
-        q8, sq = _quant_per_head(qf)
-        k8, sk = _quant_per_head(k.astype(jnp.float32))
-        v8, sv = _quant_per_head(v.astype(jnp.float32))
-        do8, sdo = _quant_per_head(do.astype(jnp.float32))
-        sqk = sq * sk
-        sdv = sdo * sv
-        kv_spec = lambda b, iq, ik: (b, ik, 0)        # noqa: E731
-        q_spec = lambda b, iq, ik: (b, iq, 0)         # noqa: E731
-        dq = pl.pallas_call(
-            functools.partial(_bwd_dq_i8_kernel, scale=scale,
-                              block_k=block_k, kv_len=kv,
-                              unroll=_pick_unroll(block_k)),
-            grid=(bh, _cdiv(nq, block_q), _cdiv(kv, block_k)),
-            in_specs=[
-                pl.BlockSpec((1, block_q, d), q_spec),
-                pl.BlockSpec((1, block_k, d), kv_spec),
-                pl.BlockSpec((1, block_k, d), kv_spec),
-                pl.BlockSpec((1, block_q, d), q_spec),
-                pl.BlockSpec((1, block_k, d), kv_spec),
-                pl.BlockSpec(aux_block, q_aux_spec),
-                pl.BlockSpec(aux_block, q_aux_spec),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ],
-            out_specs=pl.BlockSpec((1, block_q, d), q_spec),
-            out_shape=jax.ShapeDtypeStruct((bh, nq, d), q.dtype),
-            scratch_shapes=[pltpu.VMEM((d, block_q), jnp.float32)],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "parallel",
-                                     "arbitrary"),
-                vmem_limit_bytes=110 * 2 ** 20),
-            interpret=interpret,
-        )(q8, k8, v8, do8, k, lse, delta, sqk, sdv)
-
-        kv_spec2 = lambda b, ik, iq: (b, ik, 0)       # noqa: E731
-        q_spec2 = lambda b, ik, iq: (b, iq, 0)        # noqa: E731
-        dk, dv = pl.pallas_call(
-            functools.partial(_bwd_dkv_i8_kernel, block_q=block_q,
-                              dkv_unroll=_pick_unroll(block_q),
-                              block_k=block_k, q_len=nq, kv_len=kv),
-            grid=(bh, _cdiv(kv, block_k), _cdiv(nq, block_q)),
-            in_specs=[
-                pl.BlockSpec((1, block_q, d), q_spec2),
-                pl.BlockSpec((1, block_k, d), kv_spec2),
-                pl.BlockSpec((1, block_k, d), kv_spec2),
-                pl.BlockSpec((1, block_q, d), q_spec2),
-                pl.BlockSpec((1, block_q, d), q_spec2),
-                pl.BlockSpec((1, block_q, d), q_spec2),
-                pl.BlockSpec(aux_block, q_spec2),
-                pl.BlockSpec(aux_block, q_spec2),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, block_k, d), kv_spec2),
-                pl.BlockSpec((1, block_k, d), kv_spec2),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((bh, kv, d), k.dtype),
-                jax.ShapeDtypeStruct((bh, kv, d), v.dtype),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((d, block_k), jnp.float32),
-                pltpu.VMEM((d, block_k), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "parallel",
-                                     "arbitrary"),
-                vmem_limit_bytes=110 * 2 ** 20),
-            interpret=interpret,
-        )(q8, k8, v8, do8, qs, do, lse, delta, sqk, sdv)
-        return dq, dk, dv
-
-    dq = pl.pallas_call(
-        functools.partial(_bwd_dq_kernel, scale=scale, block_k=block_k,
-                          kv_len=kv, unroll=_pick_unroll(block_k)),
-        grid=(bh, _cdiv(nq, block_q), _cdiv(kv, block_k)),
-        in_specs=[
-            pl.BlockSpec((1, block_q, d), lambda b, iq, ik: (b, iq, 0)),
-            pl.BlockSpec((1, block_k, d), lambda b, iq, ik: (b, ik, 0)),
-            pl.BlockSpec((1, block_k, d), lambda b, iq, ik: (b, ik, 0)),
-            pl.BlockSpec((1, block_q, d), lambda b, iq, ik: (b, iq, 0)),
-            pl.BlockSpec(aux_block, q_aux_spec),
-            pl.BlockSpec(aux_block, q_aux_spec),
-        ],
-        out_specs=pl.BlockSpec((1, block_q, d), lambda b, iq, ik: (b, iq, 0)),
-        out_shape=jax.ShapeDtypeStruct((bh, nq, d), q.dtype),
-        scratch_shapes=[pltpu.VMEM((d, block_q), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=110 * 2 ** 20),
-        interpret=interpret,
-    )(qs, k, v, do, lse, delta)
-
-    dk, dv = pl.pallas_call(
-        functools.partial(_bwd_dkv_kernel, block_q=block_q,
-                          dkv_unroll=_pick_unroll(block_q),
-                          block_k=block_k, q_len=nq, kv_len=kv),
-        grid=(bh, _cdiv(kv, block_k), _cdiv(nq, block_q)),
-        in_specs=[
-            pl.BlockSpec((1, block_q, d), lambda b, ik, iq: (b, iq, 0)),
-            pl.BlockSpec((1, block_k, d), lambda b, ik, iq: (b, ik, 0)),
-            pl.BlockSpec((1, block_k, d), lambda b, ik, iq: (b, ik, 0)),
-            pl.BlockSpec((1, block_q, d), lambda b, ik, iq: (b, iq, 0)),
-            pl.BlockSpec(aux_block, lambda b, ik, iq: (b, iq, 0)),
-            pl.BlockSpec(aux_block, lambda b, ik, iq: (b, iq, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, block_k, d), lambda b, ik, iq: (b, ik, 0)),
-            pl.BlockSpec((1, block_k, d), lambda b, ik, iq: (b, ik, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((bh, kv, d), k.dtype),
-            jax.ShapeDtypeStruct((bh, kv, d), v.dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((d, block_k), jnp.float32),
-            pltpu.VMEM((d, block_k), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=110 * 2 ** 20),
-        interpret=interpret,
-    )(qs, k, v, do, lse, delta)
-
-    return dq, dk, dv
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5, 6))
-def _flash(q, k, v, scale, block_q, block_k, interpret):
-    out, _ = _fwd_sharded(scale, block_q, block_k, interpret)(q, k, v)
-    return out
-
-
-def _flash_fwd(q, k, v, scale, block_q, block_k, interpret):
-    out, lse = _fwd_sharded(scale, block_q, block_k, interpret)(q, k, v)
-    return out, (q, k, v, out, lse)
-
-
-def _flash_bwd(scale, block_q, block_k, interpret, res, g):
-    return _bwd_sharded(scale, block_q, block_k, interpret, False)(
-        *res, g)
-
-
-_flash.defvjp(_flash_fwd, _flash_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5, 6))
-def _flash_i8b(q, k, v, scale, block_q, block_k, interpret):
-    """bf16 flash forward + int8-score BACKWARD (attn_impl
-    "pallas_i8bwd", round-5 VERDICT #2): the bwd kernels' s-recompute
-    and dp matmuls run on the 2x-rate int8 MXU with per-head scales;
-    ds/dv/dk/dq accumulations stay bf16. Gradient quality bounded by
-    tests/test_attention.py::test_i8bwd_grads and the trajectory run in
-    BENCHMARKS.md."""
-    out, _ = _fwd_sharded(scale, block_q, block_k, interpret)(q, k, v)
-    return out
-
-
-def _flash_i8b_fwd(q, k, v, scale, block_q, block_k, interpret):
-    out, lse = _fwd_sharded(scale, block_q, block_k, interpret)(q, k, v)
-    return out, (q, k, v, out, lse)
-
-
-def _flash_i8b_bwd(scale, block_q, block_k, interpret, res, g):
-    return _bwd_sharded(scale, block_q, block_k, interpret, False,
-                        i8=True)(*res, g)
-
-
-_flash_i8b.defvjp(_flash_i8b_fwd, _flash_i8b_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5, 6, 7))
-def _flash_lse(q, k, v, scale, block_q, block_k, interpret, i8):
-    """Flash attention returning (out, lse2). lse2 is the logsumexp of the
-    scores in log2 units of the PRE-SCALED scores: softmax weights satisfy
-    p = exp2(s * scale * LOG2E - lse2). Differentiable through BOTH
-    outputs — the lse2 cotangent folds into the backward's delta term
-    (see _bwd) — which is what the ring-attention merge needs. i8=True
-    runs the backward's s-recompute/dp matmuls on the int8 MXU
-    (attn_impl "pallas_i8bwd"); the forward is bf16 either way."""
-    return _fwd_sharded(scale, block_q, block_k, interpret)(q, k, v)
-
-
-def _flash_lse_fwd(q, k, v, scale, block_q, block_k, interpret, i8):
-    out, lse = _fwd_sharded(scale, block_q, block_k, interpret)(q, k, v)
-    return (out, lse), (q, k, v, out, lse)
-
-
-def _flash_lse_bwd(scale, block_q, block_k, interpret, i8, res, g):
-    g_out, g_lse = g
-    return _bwd_sharded(scale, block_q, block_k, interpret, True,
-                        i8=i8)(*res, g_out, g_lse)
-
-
-_flash_lse.defvjp(_flash_lse_fwd, _flash_lse_bwd)
-
-
-# ---------------------------------------------------------------------------
-# Public API
-# ---------------------------------------------------------------------------
 
 def xla_attention(q, k, v, *, scale: Optional[float] = None,
                   bias: Optional[jax.Array] = None) -> jax.Array:
-    """Reference O(N^2) attention. q,k,v: (..., N, H, D) head-minor layout
-    (B, N, H, D). Used on CPU and for masked variants."""
+    """Reference O(N^2) attention: f32 scores and softmax, P cast to
+    v.dtype for the P @ V product."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     s = jnp.einsum("...qhd,...khd->...hqk", q, k,
@@ -926,112 +58,38 @@ def xla_attention(q, k, v, *, scale: Optional[float] = None,
     return jnp.einsum("...hqk,...khd->...qhd", p, v)
 
 
-def _pad_lanes(x, d_pad):
-    d = x.shape[-1]
-    if d == d_pad:
-        return x
-    return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, d_pad - d)])
-
-
-def _pick_block(n: int, cap: int, fold_step: int = 128) -> int:
-    """Largest multiple of `fold_step` <= cap that divides n (falling back
-    to multiples of 128, then cap). Even tiles keep every grid step
-    mask-free (ragged-tail masking measured ~1.2x on the 7168-token MIM
-    encoder); fold_step=1024 for q blocks keeps the folded lse layout's
-    sublane dim (block_q/128) divisible by 8, as Mosaic requires."""
-    if n <= cap:
-        return max(8, n)
-    for b in range(cap - cap % fold_step, fold_step - 1, -fold_step):
-        if n % b == 0:
-            return b
-    for b in range(cap - cap % 128, 127, -128):
-        if n % b == 0:
-            return b
-    return cap
-
-
 def attention(q, k, v, *, scale: Optional[float] = None,
               bias: Optional[jax.Array] = None,
-              impl: str = "auto",
-              block_q: Optional[int] = None, block_k: int = 2048,
-              interpret: bool = False) -> jax.Array:
+              impl: str = "auto") -> jax.Array:
     """Multi-head attention.
 
     Args:
-      q: (B, Nq, H, D); k, v: (B, Nk, H, D)  (head-minor, matmul-friendly)
+      q: (B, Nq, H, D); k, v: (B, Nk, H, D)
       scale: softmax scale, default 1/sqrt(D)
-      bias: optional additive (B|1, H|1, Nq, Nk) bias -> routes to XLA impl
-      impl: "auto" (pallas on TPU, xla elsewhere) | "pallas" | "xla" |
-        "pallas_i8bwd" (bf16 forward + int8-score BACKWARD: the bwd
-        kernels' s-recompute and dp on the 2x int8 MXU — training A/B
-        knob) | "pallas_int8" (int8 q@k^T inference fast path —
-        forward-only, rel err ~0.5-0.9%) | "pallas_int8pv" (also p@v on
-        the int8 MXU with per-sub-block p requantization — rel err ~1%)
-      block_q/block_k: kernel tile sizes (block_q=None picks the measured
-        per-impl default: 5120 for the int8 forward, 4096 otherwise —
-        v5e sweeps, BENCHMARKS.md)
+      bias: optional additive (B|1, H|1, Nq, Nk) bias (runs on XLA)
+      impl: "auto" (cuDNN where `attention_backend` allows, else XLA) or
+        "xla" (always the reference)
     Returns:
       (B, Nq, H, D)
+
+    A cuDNN error on a call the resolver sent there propagates: it is not
+    caught and re-routed.
     """
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"unknown attention impl {impl!r}; "
+                         "valid: 'auto', 'xla'")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if block_q is None:
-        block_q = 5120 if impl in ("pallas_int8", "pallas_int8pv") else 4096
-
-    if impl == "auto":
-        on_tpu = jax.devices()[0].platform == "tpu"
-        impl = "pallas" if (on_tpu and bias is None) else "xla"
-    if impl not in ("xla", "pallas", "pallas_i8bwd", "pallas_int8",
-                    "pallas_int8pv"):
-        # a typo like "pallas_int8_pv" must not silently run a different
-        # precision path in a benchmark or inference run
-        raise ValueError(
-            f"unknown attention impl {impl!r}; valid: 'auto', 'xla', "
-            "'pallas', 'pallas_i8bwd', 'pallas_int8', 'pallas_int8pv'")
-
-    if impl == "xla":
-        return xla_attention(q, k, v, scale=scale, bias=bias)
-    if jax.devices()[0].platform != "tpu":
-        interpret = True    # forced-pallas off-TPU: interpret mode (same
-        #                     convention as ops/mlp.py::mlp_forward)
-
-    if bias is not None:
-        raise NotImplementedError("pallas path does not take a bias; "
-                                  "use impl='xla' for masked attention")
-
-    b, nq, h, d = q.shape
-    kv = k.shape[1]
-    # no lane padding of head_dim: Mosaic accepts full-dim last blocks, and
-    # padding d=64 -> 128 doubles the q@k^T contraction cost
-    d_pad = d if d % 8 == 0 else -(-d // 8) * 8
-
-    def fold(x):
-        x = jnp.swapaxes(x, 1, 2).reshape(b * h, x.shape[1], d)
-        return _pad_lanes(x, d_pad)
-
-    bq = _pick_block(nq, block_q, fold_step=1024)
-    bk = _pick_block(kv, block_k)
-
-    if impl in ("pallas_int8", "pallas_int8pv"):
-        out = _fwd_i8_sharded(scale, bq, bk, interpret,
-                              impl == "pallas_int8pv")(
-            fold(q), fold(k), fold(v))
-    elif impl == "pallas_i8bwd":
-        out = _flash_i8b(fold(q), fold(k), fold(v), scale, bq, bk,
-                         interpret)
-    else:
-        out = _flash(fold(q), fold(k), fold(v), scale, bq, bk, interpret)
-    out = out[..., :d].reshape(b, h, nq, d)
-    return jnp.swapaxes(out, 1, 2)
+    if impl == "auto" and attention_backend(q, k, bias) == "cudnn":
+        return jax.nn.dot_product_attention(
+            q, k, v, scale=scale, implementation=_FUSED_IMPLEMENTATION)
+    return xla_attention(q, k, v, scale=scale, bias=bias)
 
 
-def attention_with_lse(q, k, v, *, scale: Optional[float] = None,
-                       impl: str = "auto", block_q: int = 4096,
-                       block_k: int = 2048, interpret: bool = False):
+def attention_with_lse(q, k, v, *, scale: Optional[float] = None):
     """Attention that also returns the row logsumexp, for partial-softmax
-    merging (ring attention / flash-decoding style combines).
+    merging (ring attention).
 
-    Args/layout as `attention`: q (B, Nq, H, D); k, v (B, Nk, H, D).
     Returns (out, lse2):
       out:  (B, Nq, H, D)
       lse2: (B, H, Nq) f32 logsumexp in LOG2 units of the pre-scaled
@@ -1039,49 +97,16 @@ def attention_with_lse(q, k, v, *, scale: Optional[float] = None,
             Two partials (o_a, lse2_a), (o_b, lse2_b) over disjoint kv
             blocks merge exactly with w_x = exp2(lse2_x - m) / sum.
 
-    Differentiable through BOTH outputs on every path: the pallas VJP
-    folds the lse2 cotangent into the backward's delta term (ds = p*(dp -
-    (delta - g_lse2*LOG2E))), so ring attention trains without bespoke
-    backward kernels. impl 'pallas_int8'/'pallas_int8pv' (int8 FORWARD)
-    coerce to 'pallas' — the int8-score forward kernel does not expose
-    lse. 'pallas_i8bwd' keeps its meaning: the forward is the same bf16
-    flash kernel and the int8-score BACKWARD rides the lse VJP, so
-    sequence-parallel/ring training honours the knob.
+    XLA on every platform, differentiable through both outputs. cuDNN's
+    residual is cast to the output dtype and takes no cotangent, so it
+    cannot stand in here.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if impl == "auto":
-        impl = ("pallas" if jax.devices()[0].platform == "tpu" else "xla")
-    i8bwd = impl == "pallas_i8bwd"
-    if impl in ("pallas_int8", "pallas_int8pv", "pallas_i8bwd"):
-        impl = "pallas"
-    if impl == "xla":
-        s2 = jnp.einsum("bqhd,bkhd->bhqk", q, k,
-                        preferred_element_type=jnp.float32) * (scale * LOG2E)
-        m = jnp.max(s2, axis=-1, keepdims=True)
-        p = jnp.exp2(s2 - m)
-        l = jnp.sum(p, axis=-1, keepdims=True)
-        out = jnp.einsum("bhqk,bkhd->bqhd", (p / l).astype(v.dtype), v)
-        return out, (m + jnp.log2(l))[..., 0]
-    if impl != "pallas":
-        raise ValueError(
-            f"unknown attention impl {impl!r}; valid here: 'auto', 'xla', "
-            "'pallas' (int8-forward spellings coerce to 'pallas'; "
-            "'pallas_i8bwd' keeps its int8 backward)")
-    if jax.devices()[0].platform != "tpu":
-        interpret = True    # forced-pallas off-TPU: interpret mode
-
-    b, nq, h, d = q.shape
-    kv = k.shape[1]
-    d_pad = d if d % 8 == 0 else -(-d // 8) * 8
-
-    def fold(x):
-        x = jnp.swapaxes(x, 1, 2).reshape(b * h, x.shape[1], d)
-        return _pad_lanes(x, d_pad)
-
-    bq = _pick_block(nq, block_q, fold_step=1024)
-    bk = _pick_block(kv, block_k)
-    out, lse = _flash_lse(fold(q), fold(k), fold(v), scale, bq, bk,
-                          interpret, i8bwd)
-    out = out[..., :d].reshape(b, h, nq, d)
-    return jnp.swapaxes(out, 1, 2), lse.reshape(b, h, nq)
+    s2 = jnp.einsum("bqhd,bkhd->bhqk", q, k,
+                    preferred_element_type=jnp.float32) * (scale * LOG2E)
+    m = jnp.max(s2, axis=-1, keepdims=True)
+    p = jnp.exp2(s2 - m)
+    l = jnp.sum(p, axis=-1, keepdims=True)
+    out = jnp.einsum("bhqk,bkhd->bqhd", (p / l).astype(v.dtype), v)
+    return out, (m + jnp.log2(l))[..., 0]

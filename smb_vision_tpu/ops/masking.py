@@ -1,6 +1,6 @@
 """On-device mask generation (jit-compatible, static shapes).
 
-TPU-first redesign of the reference's CPU/numpy mask generators:
+On-device redesign of the reference's CPU/numpy mask generators:
 
 - ``mim_mask`` matches MaskGenerator semantics
   (/root/reference/src/dataloader/mim.py:25-69, transforms.py:20-63):
@@ -12,7 +12,7 @@ TPU-first redesign of the reference's CPU/numpy mask generators:
   (transforms.py:96-217): sample one block size from pred_mask_scale +
   aspect-ratio, carve ``num_blocks`` random blocks out of the patch grid;
   the union of blocks is the *target*, its complement the *context*.
-  Emitted as a dense (B, N) boolean instead of index lists — on TPU the
+  Emitted as a dense (B, N) boolean instead of index lists — the
   predictor consumes the boolean directly (see models/vjepa.py), and unlike
   the reference's collate_fn (run_vjepa.py:156-158, which replicated a single
   sample's mask over the whole batch) masks here are per-sample.
@@ -70,8 +70,8 @@ def mim_mask(key: jax.Array, batch: int, *, input_size: int, depth: int,
         input_size, depth, mask_patch_size, model_patch_size, mask_ratio)
 
     # per-row random choice of mask_count coarse tokens: one argsort + a
-    # boolean scatter (bit-identical to the former argsort(argsort) rank
-    # threshold, but TPU sorts are ~2 ms/pass at this shape — half the cost)
+    # boolean scatter (bit-identical to an argsort(argsort) rank threshold
+    # at half the sorts)
     u = jax.random.uniform(key, (batch, token_count))
     masked_idx = jnp.argsort(u, axis=-1)[:, :mask_count]
     coarse = jnp.zeros((batch, token_count), bool).at[

@@ -1,6 +1,7 @@
-"""Patch embedding and pixel-target patchification as MXU-friendly reshapes +
-matmul (no conv kernels needed: stride == kernel size makes Conv3d an exact
-reshape/transpose/matmul — XLA tiles the single big matmul onto the MXU).
+"""Patch embedding and pixel-target patchification as reshapes + one matmul
+(no conv kernels needed: stride == kernel size makes Conv3d an exact
+reshape/transpose/matmul, and the single big matmul runs on the tensor
+cores).
 
 Weight layout is kept HF-Conv3d-compatible: (out, in, kt, kh, kw), so
 converted checkpoints (VideoMAEPatchEmbeddings.projection,

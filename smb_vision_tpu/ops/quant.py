@@ -1,29 +1,14 @@
-"""W8A8 dynamic-quantization linear for the inference fast path.
+"""W8A8 dynamic-quantization linear for inference.
 
-The v5e MXU's int8 path is nominally 2x bf16 (394 vs 197 TOP/s); measured
-through this toolchain it tops out near 132 TFLOP/s at the ViT projection
-shapes (scripts/kexp/w8a8_pallas2.py: pure pre-quantized int8 pallas
-matmul 132.6, XLA int8 dot 129.4, vs 96-99 for the bf16 XLA chain).
-Round-2c's per-TENSOR dynamic quantize with f32 intermediates ate all of
-that (neutral, scripts/kexp/i8mm.py). Round 3 re-measured the recipe
-space (scripts/kexp/w8a8v2.py, w8a8_pallas.py, w8a8_pallas2.py):
+Per-channel weight scales and per-row (per-token) activation scales,
+symmetric int8, an int8 x int8 -> int32 dot, then one rescale. Per-row
+scales are strictly tighter than per-tensor ones (each token gets its own
+dynamic range). Replaces nothing in the reference (it has no quantized
+inference). Whether it pays on the GPU has not been measured.
 
-- per-ROW (per-token) activation scales + bf16 intermediates: 103.5
-  TFLOP/s vs 96.6 bf16 same-session (+7%) — shipped below.
-- pallas fused quantize+matmul (one-shot N, m/n sub-block unrolls,
-  bm 256-1024): 87-102 TFLOP/s — never beats the XLA row-quantize
-  version; the int8 MXU rate at K=768/3072 is the binding ceiling, not
-  the quantize pass. Negative result; kernels kept as probe scripts.
-
-Per-row scales are also strictly tighter than per-tensor (each token gets
-its own dynamic range), so this dominates the round-2 recipe on both
-axes. Replaces nothing in the reference (it has no quantized inference);
-this is TPU-native headroom on top of the flash kernel's int8 score path.
-
-Accuracy: per-channel weight + per-row activation symmetric quantization;
-on LayerNormed ViT activations the end-to-end embed drift is of the same
-order as bf16 round-off (tests/test_attention.py::test_quant_dense; task-
-level bound in BENCHMARKS.md).
+Accuracy: on LayerNormed ViT activations the end-to-end embed drift is of
+the same order as bf16 round-off
+(tests/test_models.py::test_videomae_quant8_embed_close_to_f32).
 """
 
 from __future__ import annotations
@@ -33,7 +18,7 @@ import jax.numpy as jnp
 
 
 def w8a8_dot(x: jax.Array, kernel: jax.Array) -> jax.Array:
-    """x @ kernel on the int8 MXU.
+    """x @ kernel as an int8 matmul.
 
     x: (..., K) any float dtype; kernel: (K, M) float32.
     Returns (..., M) in x.dtype. Weights are quantized per out-channel,

@@ -8,7 +8,7 @@ reference uses *concatenated* (not interleaved) sin/cos tiling combined with
 *interleaved* pair rotation — we replicate that exact quirk so converted
 facebook/vjepa2 checkpoints produce identical outputs.
 
-TPU-first difference: the reference recomputes frequencies inside every
+Difference from the reference: it recomputes frequencies inside every
 attention layer; here the cos/sin tables are computed once per forward pass
 (they depend only on token positions) and passed down, saving 2*L transcendental
 sweeps per step.

@@ -4,51 +4,41 @@ The reference has no sequence sharding (SURVEY §2c: "no ring attention /
 Ulysses") — it survives long sequences with token dropping + flash-attn.
 Here sequence parallelism is first-class for the full-res 512^2x320 config:
 the token dimension is sharded over the mesh's "model" axis, each device
-holds q for its shard, k/v are all-gathered over ICI (N*D at ViT scale is
-tens of MB — cheap relative to N^2 compute), and the Pallas flash kernel
-runs on the local q shard. Outputs stay sequence-sharded.
+holds q for its shard, and attention runs on the local q shard. Outputs
+stay sequence-sharded.
 
 Two variants:
-- `context_parallel_attention`: kv all-gathered over ICI (N*D at ViT
-  scale is tens of MB — cheap relative to N^2 compute), one kernel call.
-- `ring_attention`: kv blocks rotate via ppermute, the flash kernel runs
-  per block and partials merge by logsumexp — O(N/devices) kv memory for
-  configs where the gathered kv no longer fits.
+- `context_parallel_attention`: kv all-gathered over the device links
+  (N*D at ViT scale is tens of MB — cheap relative to N^2 compute), one
+  `attention` call (cuDNN on the GPU).
+- `ring_attention`: kv blocks rotate via ppermute, `attention_with_lse`
+  runs per block and partials merge by logsumexp — O(N/devices) kv
+  memory for configs where the gathered kv no longer fits.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
-try:
-    from jax import shard_map as _shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
-
-
-def shard_map(f, **kw):
-    """shard_map with varying-manual-axes checking off: pallas_call outputs
-    carry no vma metadata, which trips check_vma on TPU (jax >= 0.9)."""
-    try:
-        return _shard_map(f, check_vma=False, **kw)
-    except TypeError:  # older jax spells it check_rep
-        return _shard_map(f, check_rep=False, **kw)
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from smb_vision_tpu.ops.attention import attention, attention_with_lse
 
 
+def shard_map(f, **kw):
+    """jax.shard_map with varying-manual-axes checking off, so the body may
+    call custom calls (cuDNN attention) that carry no vma annotation."""
+    return jax.shard_map(f, check_vma=False, **kw)
+
+
 def context_parallel_attention(q, k, v, *, mesh: Mesh, axis: str = "model",
                                scale: Optional[float] = None,
-                               impl: str = "auto",
                                batch_axis: Optional[str] = None):
     """q, k, v: (B, N, H, D) with N sharded over `axis`. Returns (B, N, H, D)
-    sequence-sharded the same way. Each per-device body runs the flash
-    kernel (impl='auto' on TPU) on its local q shard against the gathered
-    kv — the sequence-parallel fast path the round-1 models abandoned.
+    sequence-sharded the same way. Each per-device body runs `attention`
+    on its local q shard against the gathered kv.
 
     batch_axis: mesh axis the batch dim is sharded over (usually "data"
     inside the models); None keeps the batch replicated per shard group."""
@@ -56,7 +46,7 @@ def context_parallel_attention(q, k, v, *, mesh: Mesh, axis: str = "model",
     def local(q_shard, k_shard, v_shard):
         k_full = jax.lax.all_gather(k_shard, axis, axis=1, tiled=True)
         v_full = jax.lax.all_gather(v_shard, axis, axis=1, tiled=True)
-        return attention(q_shard, k_full, v_full, scale=scale, impl=impl)
+        return attention(q_shard, k_full, v_full, scale=scale)
 
     spec = P(batch_axis, axis, None, None)
     return shard_map(local, mesh=mesh, in_specs=(spec, spec, spec),
@@ -64,24 +54,19 @@ def context_parallel_attention(q, k, v, *, mesh: Mesh, axis: str = "model",
 
 
 def ring_attention(q, k, v, *, mesh: Mesh, axis: str = "model",
-                   scale: Optional[float] = None, impl: str = "auto",
-                   batch_axis: Optional[str] = None,
-                   interpret: bool = False):
-    """Ring attention with true O(N/devices) memory: kv shards rotate
-    around the ring via ppermute and every block runs the Pallas flash
-    kernel (`attention_with_lse`, impl='auto' on TPU), so no step ever
-    materialises a score tensor or a gathered kv — the largest live
-    arrays are one kv block and the f32 (B, N/dev, H, D) accumulator.
+                   scale: Optional[float] = None,
+                   batch_axis: Optional[str] = None):
+    """Ring attention with O(N/devices) kv memory: kv shards rotate
+    around the ring via ppermute and every block runs `attention_with_lse`
+    (XLA: one (N/dev)^2 score block per step), so no step holds a gathered
+    kv.
 
     Per-block normalised partials (o_i, lse2_i) merge with the exact
     log-sum-exp combine (weights exp2(lse2_i - total), log2 units —
-    matching the kernel's lse output). The ring loop is unrolled over the
+    matching `attention_with_lse`). The ring loop is unrolled over the
     static ring size: XLA overlaps each step's ppermute with the previous
     block's compute, and reverse-mode AD works through the unrolled merges
-    because the flash VJP is differentiable through BOTH outputs (the lse2
-    cotangent folds into the backward's delta term, ops/attention._bwd).
-    Backward memory holds each step's kv block + (out, lse) partial —
-    O(N) total like the gather variant, never O(N^2).
+    because `attention_with_lse` is differentiable through both outputs.
 
     Use `context_parallel_attention` when the gathered kv fits (one
     all-gather beats n_dev-1 ppermute latencies); use the ring when it
@@ -90,8 +75,7 @@ def ring_attention(q, k, v, *, mesh: Mesh, axis: str = "model",
 
     def local(q_shard, k_shard, v_shard):
         def block(ks, vs):
-            out, lse2 = attention_with_lse(q_shard, ks, vs, scale=scale,
-                                           impl=impl, interpret=interpret)
+            out, lse2 = attention_with_lse(q_shard, ks, vs, scale=scale)
             return out.astype(jnp.float32), lse2
 
         def merge(a, b):

@@ -2,12 +2,12 @@
 
 The reference scales depth-wise only through ZeRO sharding (DeepSpeed
 stage-3, reference ds_configs/ds_z3_config.json) — every GPU still
-executes every layer. On TPU slices the natural depth-wise scaling is
+executes every layer. Across devices the natural depth-wise scaling is
 a collective-permute pipeline (the scaling book's pipelining recipe): the
 layer stack is split into S contiguous stages, one per device along a
 "pipe" mesh axis, and microbatches stream through the ring — each tick
-every stage applies its layers to its current microbatch while ICI
-carries activations to the next stage. XLA overlaps the ppermute with
+every stage applies its layers to its current microbatch while the
+device links carry activations to the next stage. XLA overlaps the ppermute with
 the next tick's compute, so the steady-state cost is pure compute plus
 an (S-1)/(M+S-1) bubble for M microbatches.
 

@@ -125,7 +125,7 @@ def opt_state_shardings(opt_state: Any, params_sharding: Any,
         spec cannot apply. Shard the block axis (dim 0) over the same mesh
         axes the param is sharded over, so 8-bit state is distributed
         under fsdp instead of silently replicating (which would cost ~2x
-        MORE per-device optimizer HBM than sharded exact Adam)."""
+        MORE per-device optimizer memory than sharded exact Adam)."""
         axes = []
         for entry in cand.spec:
             if entry is None:

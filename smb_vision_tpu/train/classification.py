@@ -31,23 +31,14 @@ def init_model_params(model, config, key, example_batch):
     params ONLY, no optimizer state. The LoRA path uses this to build the
     frozen base: calling the workload init there would materialise a full
     AdamW mu/nu (2x the model in f32) just to throw it away — exactly the
-    transient that can OOM the configs LoRA exists for.
-
-    The init trace runs under impl-neutral kernels: parameter shapes do
-    not depend on attn_impl/mlp_impl, but a FORCED kernel impl (e.g.
-    the preset mlp_impl='pallas_bwd') would reject the 1-sample row
-    count even when the real train batch maps fine (224^2x160 = 1960
-    rows at bs 1 vs 15680 -> padded at bs 8)."""
-    from smb_vision_tpu.models.configs import impl_neutral
-
+    transient that can OOM the configs LoRA exists for."""
     supports_features = config.model_type == "videomae"
-    imodel = type(model)(impl_neutral(config))
 
     def init(k, b):
         kwargs = {}
         if supports_features and "additional_features" in b:
             kwargs["additional_features"] = b["additional_features"]
-        return imodel.init(k, b["pixel_values"], labels=None, **kwargs)
+        return model.init(k, b["pixel_values"], labels=None, **kwargs)
 
     return jax.jit(init)(key, jax.tree_util.tree_map(
         lambda x: jnp.asarray(x)[:1], example_batch))
@@ -105,7 +96,7 @@ def make_classification_workload(model, config, *, task_type: str,
                                  tx: optax.GradientTransformation,
                                  grad_accum: int = 1, accum_dtype=None):
     """model: VideoMAEForVideoClassification | Dinov2ForImageClassification
-    (flax module, already built with problem_type set in its config).
+    (module, already built with problem_type set in its config).
 
     grad_accum > 1 splits the (global) batch into microbatches via
     accumulate_gradients — matching run_cls.sh recipes that rely on HF

@@ -196,7 +196,7 @@ def make_lora_classification_workload(model, config, *, task_type: str, tx,
         return new_state, {"loss": loss}
 
     # jitted ONCE at factory time: building jax.jit(lambda ...) inside
-    # eval_fn would retrace (multi-minute TPU compile) on every eval batch
+    # eval_fn would retrace (and recompile) on every eval batch
     _eval_loss = jax.jit(
         lambda p, l, b: loss_of(p, l, b, deterministic=True))
 

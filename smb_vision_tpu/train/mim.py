@@ -1,7 +1,7 @@
 """MIM (SimMIM-style) pretraining workload.
 
-Builds the jitted train/eval step for VideoMAEForPreTraining. TPU-first:
-the block mask is generated *inside* the compiled step from the RNG key
+Builds the jitted train/eval step for VideoMAEForPreTraining. The
+block mask is generated *inside* the compiled step from the RNG key
 (per-sample; the reference generated masks in CPU DataLoader workers and
 pickled them into the dataset cache, mim.py:161-185)."""
 
@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from smb_vision_tpu.models.configs import VideoMAEConfig, impl_neutral
+from smb_vision_tpu.models.configs import VideoMAEConfig
 from smb_vision_tpu.models.videomae import VideoMAEForPreTraining
 from smb_vision_tpu.ops.masking import mim_mask, num_masked_tokens
 from smb_vision_tpu.train.trainer import accumulate_gradients, train_state
@@ -48,8 +48,7 @@ def make_mim_workload(config: VideoMAEConfig, *, mask_patch_size: int,
                         config.image_size, config.image_size),
                        jnp.float32)
         mask = gen_mask(key, b)
-        imodel = VideoMAEForPreTraining(impl_neutral(config))
-        params = jax.jit(imodel.init, static_argnums=(3,))(
+        params = jax.jit(model.init, static_argnums=(3,))(
             key, px, mask, num_masked)
         return train_state(params, tx.init(params))
 
@@ -79,7 +78,7 @@ def make_mim_workload(config: VideoMAEConfig, *, mask_patch_size: int,
     def eval_fn(state, batch):
         key = jax.random.PRNGKey(0)  # fixed eval mask for determinism
         # deterministic=True: eval must run the model in eval mode (today
-        # the flax VideoMAE has no stochastic modules, but the contract
+        # the VideoMAE has no stochastic modules, but the contract
         # matches the vjepa/classification eval paths)
         loss, _ = loss_fn(state["params"], batch, key, deterministic=True)
         return {"loss": loss}
@@ -95,7 +94,7 @@ def make_pipelined_mim_workload(config: VideoMAEConfig, *,
                                 remat: bool = True):
     """MIM pretraining with the encoder AND decoder stacks pipelined
     (GPipe) over the mesh model axis: each device holds layers/S of both
-    stacks plus the replicated glue, so models deeper than one chip's HBM
+    stacks plus the replicated glue, so models deeper than one device's memory
     pretrain. The train state keeps the STACKED param layout (shardable
     leading layer axis — pair with sharding_policy="pipeline"); convert
     with models/pipelined.from_pipeline_pretrain_params before exporting
@@ -137,9 +136,8 @@ def make_pipelined_mim_workload(config: VideoMAEConfig, *,
                         config.image_size, config.image_size),
                        jnp.float32)
         mask = gen_mask(key, b)
-        imodel = VideoMAEForPreTraining(impl_neutral(config))
-        dense = jax.jit(imodel.init, static_argnums=(3,))(
-            key, px, mask, num_masked)
+        dense = jax.jit(VideoMAEForPreTraining(config).init,
+                        static_argnums=(3,))(key, px, mask, num_masked)
         params = to_pipeline_pretrain_params(dense)
         return train_state(params, tx.init(params))
 

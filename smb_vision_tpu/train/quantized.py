@@ -1,4 +1,4 @@
-"""8-bit optimizer state: the TPU-native analog of bitsandbytes Adam8bit
+"""8-bit optimizer state: the JAX analog of bitsandbytes Adam8bit
 (the reference's optional optimizer, /root/reference/src/train/trainer.py:
 155-167 — the one §2b component with no round-1 equivalent).
 

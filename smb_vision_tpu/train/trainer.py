@@ -1,10 +1,11 @@
-"""Training loop: the TPU-native replacement for HF Trainer + accelerate +
+"""Training loop: the JAX replacement for HF Trainer + accelerate +
 DeepSpeed (the reference delegates everything to those, SURVEY §0).
 
 Responsibilities mirrored from the reference surface:
 - jitted train step over a Mesh (DDP/ZeRO -> GSPMD shardings)
 - gradient accumulation (run_vjepa.sh: grad-accum 4) via lax.scan
-- orbax checkpointing with save_steps / save_total_limit and auto-resume
+- checkpointing (train/checkpoint.py) with save_steps / save_total_limit
+  and auto-resume
   (HF get_last_checkpoint behaviour, run_mim.py:263-276,439-445)
 - periodic eval + metric logging (console + jsonl + optional wandb)
 - step-time / throughput / MFU meters (the reference had none — SURVEY §5)
@@ -46,18 +47,16 @@ class TrainingArguments:
     per_device_eval_batch_size: int = 1
     gradient_accumulation_steps: int = 1
     # dtype of the scan-carried gradient accumulator under accumulation:
-    # float32 (exact) | bfloat16 (halves carried state; lets ViT-L V-JEPA
-    # grad-accum fit the 16 GB v5e)
+    # float32 (exact) | bfloat16 (halves the carried state)
     grad_accum_dtype: str = "float32"
     # host-side dtype for float batch arrays shipped to the device:
-    # bfloat16 halves host->HBM transfer bytes (the model's first matmul
+    # bfloat16 halves host->device transfer bytes (the model's first matmul
     # casts to the compute dtype anyway, so the cost is one extra rounding
     # of the [0,1]-windowed inputs); "uint8" quarters them — pixels ship
     # as per-volume-affine codes and decode to bf16 inside the compiled
     # step (data/quantization.py; max abs err (max-min)/510 per voxel,
-    # same order as bf16 rounding on [0,1] data). Matters on
-    # bandwidth-constrained hosts; see run_inference --input_dtype for
-    # the inference analog.
+    # same order as bf16 rounding on [0,1] data); see run_inference
+    # --input_dtype for the inference analog.
     input_dtype: str = "float32"
     learning_rate: float = 5e-5
     weight_decay: float = 0.01
@@ -82,8 +81,7 @@ class TrainingArguments:
     # parallelism
     sharding_policy: str = "dp"      # dp | fsdp | tp | fsdp+tp
     model_parallel: int = 1
-    dcn_slices: int = 1              # multi-slice: data axis spans DCN
-    # multi-host: None auto-detects pod env and calls
+    # multi-host: None auto-detects a coordinator in the env and calls
     # jax.distributed.initialize(); True forces, False skips
     multihost: Optional[bool] = None
     # perf accounting
@@ -97,7 +95,7 @@ class TrainingArguments:
 
 # Train state is a plain dict pytree: {'params', 'opt_state', 'step',
 # + workload extras (e.g. 'teacher' params for V-JEPA)} — dicts jit and
-# orbax-round-trip losslessly.
+# round-trip through train/checkpoint.py losslessly.
 
 def train_state(params, opt_state, step=0, **extras) -> dict:
     s = dict(params=params, opt_state=opt_state,
@@ -124,8 +122,7 @@ class Trainer:
         # eval batches pad up to a multiple of this (x the data axis):
         # pipelined eval_fns need the batch divisible into microbatches
         self.eval_batch_multiple = max(int(eval_batch_multiple), 1)
-        self.mesh = mesh or create_mesh(model=args.model_parallel,
-                                        dcn=args.dcn_slices)
+        self.mesh = mesh or create_mesh(model=args.model_parallel)
         self.train_loader = train_loader
         self.eval_loader = eval_loader
         self.eval_fn = eval_fn
@@ -183,64 +180,45 @@ class Trainer:
         return out
 
     # ------------------------------------------------------------------
-    # checkpointing (orbax)
+    # checkpointing
     # ------------------------------------------------------------------
     def _make_ckpt_manager(self):
-        import orbax.checkpoint as ocp
+        from smb_vision_tpu.train.checkpoint import CheckpointManager
 
-        opts = ocp.CheckpointManagerOptions(
-            max_to_keep=self.args.save_total_limit,
-            create=True, enable_async_checkpointing=True)
-        return ocp.CheckpointManager(
-            (self.out_dir / "checkpoints").absolute(), options=opts)
+        return CheckpointManager(self.out_dir / "checkpoints",
+                                 max_to_keep=self.args.save_total_limit)
 
     def save_checkpoint(self, step: int):
-        import orbax.checkpoint as ocp
-
-        self._ckpt_mgr.save(
-            step, args=ocp.args.StandardSave(dict(self.state)))
+        self._ckpt_mgr.save(step, dict(self.state))
 
     def maybe_restore(self) -> int:
         """HF-style auto-resume: explicit path > latest in output_dir."""
-        import orbax.checkpoint as ocp
+        from smb_vision_tpu.train.checkpoint import CheckpointManager
 
-        target = jax.tree_util.tree_map(
-            ocp.utils.to_shape_dtype_struct
-            if hasattr(ocp.utils, "to_shape_dtype_struct") else (lambda x: x),
-            dict(self.state))
         step = None
         if self.args.resume_from_checkpoint:
-            path = Path(self.args.resume_from_checkpoint)
-            mgr = ocp.CheckpointManager(path.absolute())
+            mgr = CheckpointManager(self.args.resume_from_checkpoint)
             step = mgr.latest_step()
             if step is not None:
-                restored = mgr.restore(
-                    step, args=ocp.args.StandardRestore(target))
-                self.state = self._apply_shardings(dict(restored))
+                self.state = self._apply_shardings(
+                    mgr.restore(step, dict(self.state)))
         elif self.args.overwrite_output_dir:
             # HF semantic: start fresh even when output_dir already holds
-            # checkpoints. The stale steps must be DELETED, not ignored:
-            # orbax raises StepAlreadyExistsError when a fresh run's save
-            # lands on a step number the old run already wrote.
+            # checkpoints; the stale steps are deleted so the new run's
+            # steps are the only ones a later resume can find
             step = self._ckpt_mgr.latest_step()
             if step is not None:
                 logger.info("overwrite_output_dir: deleting existing "
                             "checkpoints (latest step %s), training from "
                             "scratch", step)
-                import shutil
-
-                self._ckpt_mgr.close()
-                shutil.rmtree(self.out_dir / "checkpoints",
-                              ignore_errors=True)
-                self._ckpt_mgr = self._make_ckpt_manager()
+                self._ckpt_mgr.delete_all()
             step = None
         else:
             step = self._ckpt_mgr.latest_step()
             if step is not None:
                 logger.info("checkpoint detected, resuming at step %s", step)
-                restored = self._ckpt_mgr.restore(
-                    step, args=ocp.args.StandardRestore(target))
-                self.state = self._apply_shardings(dict(restored))
+                self.state = self._apply_shardings(
+                    self._ckpt_mgr.restore(step, dict(self.state)))
         return int(step or 0)
 
     def save_model(self):
@@ -279,8 +257,8 @@ class Trainer:
         start = self.maybe_restore()
 
         # preemption safety: SIGTERM/SIGINT requests a checkpoint at the
-        # next step boundary instead of dying mid-update (TPU pods are
-        # routinely preempted; the reference had no elasticity, SURVEY §5)
+        # next step boundary instead of dying mid-update (the reference had
+        # no elasticity, SURVEY §5)
         import signal
 
         stop_requested = {"flag": False}
@@ -340,8 +318,8 @@ class Trainer:
             from smb_vision_tpu.parallel.mesh import DATA_AXIS
             accum_sh = NamedSharding(self.mesh, P(None, DATA_AXIS))
 
-        # device-cached loader: volumes live in HBM across epochs; the
-        # host-side cast/pre-split must not pull them back
+        # device-cached loader: volumes live in device memory across
+        # epochs; the host-side cast/pre-split must not pull them back
         dev_cached = hasattr(self.train_loader, "attach_sharding")
         if dev_cached:
             if accum > 1:
@@ -469,11 +447,9 @@ class Trainer:
         if prof_active:          # profile window ran past the last step
             jax.profiler.stop_trace()
         # final save unless this exact step is already on disk (a
-        # save_steps-aligned stop, or a relaunch of a completed run):
-        # orbax raises StepAlreadyExistsError on a duplicate step
+        # save_steps-aligned stop, or a relaunch of a completed run)
         if self._ckpt_mgr.latest_step() != step:
             self.save_checkpoint(step)
-        self._ckpt_mgr.wait_until_finished()
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
         if stop_requested["flag"]:
@@ -496,8 +472,7 @@ class Trainer:
         # exact; losses are exact too — every in-repo eval_fn consumes the
         # injected valid_mask (per-row weighting for CE/MSE/BCE/MIM/V-JEPA,
         # risk-set exclusion for Cox), and the batch loss is weighted by
-        # the true count in the aggregate below. (Round 1 replicated odd
-        # batches -> one multi-minute TPU compile per distinct shape.)
+        # the true count in the aggregate below.
         target_b = {"n": None}
 
         n_data = self.mesh.shape["data"]
@@ -577,18 +552,17 @@ def _concat_labels(labels_list):
     return np.concatenate([np.asarray(x) for x in labels_list])
 
 
+# Dense bf16 tensor-core peak per device, keyed by jax's device_kind.
+# Source: NVIDIA H100 Tensor Core GPU data sheet (SXM: 989 TFLOP/s bf16
+# dense, without sparsity). A device not listed gets no MFU.
+PEAK_BF16_FLOPS = {
+    "NVIDIA H100 80GB HBM3": 989e12,
+}
+
+
 def _device_peak_flops() -> Optional[float]:
-    """Peak bf16 FLOP/s per chip for MFU accounting."""
-    kind = jax.devices()[0].device_kind.lower()
-    table = {
-        "v5 lite": 197e12, "v5e": 197e12, "v5litepod": 197e12,
-        "v5p": 459e12, "v5": 459e12,
-        "v4": 275e12, "v6e": 918e12, "v6 lite": 918e12,
-    }
-    for k, v in table.items():
-        if k in kind:
-            return v
-    return None
+    """Peak bf16 FLOP/s of this process's devices, or None if unknown."""
+    return PEAK_BF16_FLOPS.get(jax.devices()[0].device_kind)
 
 
 # sentinel key marking a batch whose leaves are already (n_accum, micro, ..)
@@ -610,9 +584,7 @@ def accumulate_gradients(loss_fn, params, batch, key, n_accum: int,
     accumulation instead of getting None back (round-1 weakness).
 
     accum_dtype: dtype of the scan-carried gradient accumulator (default
-    f32). bfloat16 halves the carried state — the difference between a
-    ViT-L V-JEPA step fitting in the 16 GB v5e HBM or OOMing at
-    grad_accum >= 2 (NOTES_ROUND3 known limit). The mean over <=8
+    f32). bfloat16 halves the carried state. The mean over <=8
     microbatches in bf16 costs ~2-3 significant digits of gradient — well
     under SGD noise; the optimizer update itself stays f32."""
     pre_split = isinstance(batch, dict) and ACCUM_SPLIT_KEY in batch

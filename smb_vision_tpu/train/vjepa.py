@@ -10,13 +10,12 @@ with the two reference bugs fixed by design (SURVEY §2 item 5):
 
 from __future__ import annotations
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
 import optax
 
-from smb_vision_tpu.models.configs import VJEPA2Config, impl_neutral
+from smb_vision_tpu.models.configs import VJEPA2Config
 from smb_vision_tpu.models.vjepa import VJEPA2Model, vjepa_loss
 from smb_vision_tpu.ops.masking import vjepa_target_mask
 from smb_vision_tpu.train.optim import ema_update
@@ -31,18 +30,8 @@ def make_vjepa_workload(config: VJEPA2Config, *,
                         ema_momentum: float = EMA_MOMENTUM,
                         pred_mask_scale=(0.2, 0.8),
                         aspect_ratio=(0.3, 3.0), num_blocks: int = 3,
-                        inv_block: bool = False,
-                        teacher_attn_impl: str = None):
+                        inv_block: bool = False):
     model = VJEPA2Model(config)
-    # the EMA teacher is forward-only (stop_gradient below), so it may run
-    # the int8-score inference attention path (teacher_attn_impl=
-    # "pallas_int8") — its targets shift by ~the bf16 operand noise while
-    # the teacher's ~1/3 of step attention FLOPs runs on the 2x int8 MXU
-    if teacher_attn_impl:
-        tmodel = VJEPA2Model(
-            dataclasses.replace(config, attn_impl=teacher_attn_impl))
-    else:
-        tmodel = model
 
     def gen_mask(key, batch):
         return vjepa_target_mask(key, batch, grid=config.grid,
@@ -58,9 +47,8 @@ def make_vjepa_workload(config: VJEPA2Config, *,
         px = jnp.zeros((b, config.frames_per_clip, config.in_chans,
                         config.crop_size, config.crop_size), jnp.float32)
         tb = gen_mask(key, b)
-        imodel = VJEPA2Model(impl_neutral(config))
         params = jax.jit(
-            lambda k, x, t: imodel.init(k, x, target_bool=t))(key, px, tb)
+            lambda k, x, t: model.init(k, x, target_bool=t))(key, px, tb)
         # teacher starts as a copy of the online encoder (deepcopy in the
         # reference, run_vjepa.py:104)
         teacher = jax.tree_util.tree_map(jnp.copy, params)
@@ -73,7 +61,7 @@ def make_vjepa_workload(config: VJEPA2Config, *,
         rngs = None if deterministic else {"droppath": dp_key}
         out = model.apply(params, px, target_bool=tb,
                           deterministic=deterministic, rngs=rngs)
-        tgt = tmodel.apply(teacher, px, target_bool=tb, skip_predictor=True)[
+        tgt = model.apply(teacher, px, target_bool=tb, skip_predictor=True)[
             "last_hidden_state"]
         return vjepa_loss(out["predictor_output"],
                           jax.lax.stop_gradient(tgt), tb, valid=valid)
@@ -156,9 +144,8 @@ def make_pipelined_vjepa_workload(config: VJEPA2Config, *,
         px = jnp.zeros((b, config.frames_per_clip, config.in_chans,
                         config.crop_size, config.crop_size), jnp.float32)
         tb = gen_mask(key, b)
-        imodel = VJEPA2Model(impl_neutral(config))
         dense = jax.jit(
-            lambda k, x, t: imodel.init(k, x, target_bool=t))(key, px, tb)
+            lambda k, x, t: model.init(k, x, target_bool=t))(key, px, tb)
         params = to_pipeline_vjepa_params(dense)
         teacher = jax.tree_util.tree_map(jnp.copy, params)
         return train_state(params, tx.init(params), teacher=teacher)

@@ -84,10 +84,10 @@ def _coerce(v, ftype):
 #     'tristate'  'no' -> `--target false`, else -> `--target true`
 #     'json_pick' value is a json dict; known keys map via target dict
 #     'ignore'    dropped with a warning (no equivalent needed)
-#     'error'     unsupported on TPU; fail with the message in target
+#     'error'     unsupported here; fail with the message in target
 _HF_COMPAT = {
     "bf16": ("bool_set", ("dtype", "bfloat16")),
-    "fp16": ("error", "fp16 is a GPU dtype; the TPU path is bfloat16 "
+    "fp16": ("error", "bfloat16 is the supported half precision "
                       "(--dtype bfloat16, the default)"),
     "eval_strategy": ("tristate", "do_eval"),
     "evaluation_strategy": ("tristate", "do_eval"),
@@ -103,8 +103,8 @@ _HF_COMPAT = {
     "dataloader_pin_memory": ("ignore", "host->device transfer is "
                                         "managed by the prefetcher"),
     "tf32": ("ignore", "matmul precision is an XLA-level setting"),
-    "save_safetensors": ("ignore", "checkpoints are orbax; HF export is "
-                                   "--export_hf"),
+    "save_safetensors": ("ignore", "checkpoints are step directories; HF "
+                                   "export is --export_hf"),
     "ddp_find_unused_parameters": ("ignore", "no DDP wrapper here"),
     "torch_compile": ("ignore", "everything hot is jit-compiled already"),
 }
@@ -215,7 +215,9 @@ def parse_args_into_dataclasses(classes: Sequence[Type],
 
     # single-JSON-file mode
     if len(argv) == 1 and argv[0].endswith(".json"):
-        blob = json.loads(Path(argv[0]).read_text())
+        from smb_vision_tpu.models.configs import legacy_fields
+
+        blob = legacy_fields(json.loads(Path(argv[0]).read_text()), argv[0])
         flat = []
         for k, v in blob.items():
             if k in _HF_COMPAT and k not in field_names:

@@ -27,7 +27,7 @@ def test_context_parallel_matches_dense(eight_devices, qkv):
     q, k, v = qkv
     spec = NamedSharding(mesh, P(None, "model", None, None))
     qs, ks, vs = (jax.device_put(x, spec) for x in (q, k, v))
-    out = context_parallel_attention(qs, ks, vs, mesh=mesh, impl="xla")
+    out = context_parallel_attention(qs, ks, vs, mesh=mesh)
     ref = xla_attention(q, k, v)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                atol=2e-5, rtol=2e-5)
@@ -52,7 +52,7 @@ def test_ring_attention_grad_flows(eight_devices, qkv):
 
     def loss(q, k, v):
         return jnp.sum(
-            context_parallel_attention(q, k, v, mesh=mesh, impl="xla") ** 2)
+            context_parallel_attention(q, k, v, mesh=mesh) ** 2)
 
     g = jax.grad(loss)(qs, ks, vs)
     ref = jax.grad(lambda q, k, v: jnp.sum(xla_attention(q, k, v) ** 2))(
@@ -81,44 +81,9 @@ def test_ring_attention_grads_match_dense(eight_devices, qkv):
                                    atol=1e-4, rtol=1e-4)
 
 
-def test_ring_attention_pallas_path_matches_dense(eight_devices, qkv):
-    """The ring must run the flash kernel per block (interpret mode on the
-    CPU mesh) and still merge exactly to dense attention."""
-    mesh = create_mesh(model=4, devices=eight_devices)
-    q, k, v = qkv
-    spec = NamedSharding(mesh, P(None, "model", None, None))
-    qs, ks, vs = (jax.device_put(x, spec) for x in (q, k, v))
-    out = ring_attention(qs, ks, vs, mesh=mesh, impl="pallas",
-                         interpret=True)
-    ref = xla_attention(q, k, v)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=3e-5, rtol=3e-5)
-
-
-def test_ring_attention_pallas_grads_match_dense(eight_devices, qkv):
-    """Training through the ring's kernel path: the flash VJP is
-    differentiable through both (out, lse2) outputs, so reverse-mode AD
-    through the unrolled ppermute/merge loop matches dense grads."""
-    mesh = create_mesh(model=4, devices=eight_devices)
-    q, k, v = qkv
-    spec = NamedSharding(mesh, P(None, "model", None, None))
-    qs, ks, vs = (jax.device_put(x, spec) for x in (q, k, v))
-
-    def loss(q, k, v):
-        return jnp.sum(ring_attention(q, k, v, mesh=mesh, impl="pallas",
-                                      interpret=True) ** 2)
-
-    g = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(qs, ks, vs)
-    ref = jax.grad(lambda q, k, v: jnp.sum(xla_attention(q, k, v) ** 2),
-                   argnums=(0, 1, 2))(q, k, v)
-    for a, b in zip(g, ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=1e-4, rtol=1e-4)
-
-
 def test_ring_attention_uses_flash_wrapper(eight_devices, qkv, monkeypatch):
-    """Every ring block must go through attention_with_lse (the kernel
-    entry point) — n_dev calls per ring invocation, no einsum fallback."""
+    """Every ring block must go through attention_with_lse — n_dev calls
+    per ring invocation."""
     import smb_vision_tpu.parallel.context as ctx_mod
 
     mesh = create_mesh(model=4, devices=eight_devices)

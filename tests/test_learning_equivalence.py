@@ -3,7 +3,7 @@
 The reference trains vendored-HF VideoMAE through torch + HF ``Trainer``
 (/root/reference/src/run_mim.py:429-449, classification via
 run_classification.py:75-97 with the recipe in
-scripts/training/run_mim.sh:13-38). These tests export OUR flax init into
+scripts/training/run_mim.sh:13-38). These tests export OUR init into
 the stock torch model, train BOTH stacks for 10 optimizer steps on
 identical batches in the HF Trainer's own sampling order with the
 reference recipe knobs (AdamW + wd coupling, HF decay-parameter set,
@@ -12,10 +12,7 @@ per-step loss trajectories to agree to f32-class tolerance.
 
 This jointly validates what the unit goldens cannot: optimizer semantics,
 the wd-exclusion set, clip ordering, schedule shape, and the masked-loss /
-Cox path, composed over steps. The longer-horizon versions (50 steps, an
-amplified-lr variant, and final-parameter comparison) live in
-scripts/kexp/learn_equiv_{mim,cls,vjepa}.py with recorded outputs in
-BENCHMARKS.md.
+Cox path, composed over steps.
 
 The V-JEPA case re-creates the reference's VJEPATrainer
 (/root/reference/src/run_vjepa.py:87-141) on the torch side — EMA target
@@ -54,9 +51,8 @@ N, B, STEPS = 4, 2, 10
 RECIPE = dict(learning_rate=1e-3, weight_decay=0.01, warmup_ratio=0.01,
               max_grad_norm=1.0)
 # f32-class bound: both stacks run f32 (matmul precision "highest" via
-# conftest); the measured max over MIM/CE/Cox at 50 steps is <6e-5
-# (BENCHMARKS.md "Learning equivalence"), 1e-3 leaves slack for torch's
-# 4-decimal loss logging and BLAS variation across hosts.
+# conftest); 1e-3 leaves slack for torch's 4-decimal loss logging and
+# BLAS variation across hosts.
 TOL = 1e-3
 
 

@@ -125,7 +125,7 @@ def test_lora_workload_steps_without_meta_drift():
 
 def test_lora_eval_builds_jit_once(monkeypatch):
     """Round-2 VERDICT weak #3: eval_fn built jax.jit(lambda ...) per
-    batch — a fresh trace (multi-minute TPU compile) every eval batch.
+    batch — a fresh trace and compile every eval batch.
     The jitted eval loss must be constructed once, at factory time."""
     import optax
 

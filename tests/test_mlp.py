@@ -1,13 +1,13 @@
-"""Fused Pallas MLP (ops/mlp.py): numerics, grads, planning, and module
-integration. The pallas kernel runs in interpret mode on the CPU mesh;
-compiled-kernel numerics are asserted on the chip by
-scripts/kexp/mlpk3.py (see BENCHMARKS.md)."""
+"""Transformer MLP: the Mlp/Block modules against the plain references in
+ops/mlp.py (the chain the GPU runs through cuBLAS and XLA fusions), their
+param trees, and their gradients."""
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
-from smb_vision_tpu.ops.mlp import _mlp_xla, _plan, mlp_forward
+from smb_vision_tpu.ops.mlp import mlp_block_xla, mlp_xla
 
 
 def _mk(seed, shape, dtype=jnp.float32, s=0.5):
@@ -15,241 +15,102 @@ def _mk(seed, shape, dtype=jnp.float32, s=0.5):
     return (x * s).astype(dtype)
 
 
-def _args(M=256, K=256, F=1024, dtype=jnp.bfloat16):
-    return (_mk(0, (2, M // 2, K), dtype), _mk(1, (K, F)),
-            _mk(2, (F,)) * 0.1, _mk(3, (F, K)), _mk(4, (K,)) * 0.1)
-
-
-def test_plan_shapes():
-    assert _plan(81920, 768, 3072) == (512, 3072, 768)   # bench bs4
-    bm, bf, bn = _plan(9216, 1024, 4096)                  # ViT-L: chunked
-    assert bf < 4096 and 4096 % bf == 0 and bf % bn == 0
-    assert _plan(2745, 768, 3072) is None                 # odd CLS rows
-    assert _plan(256, 700, 1024) is None                  # K not lane-tiled
-
-
-def test_fused_matches_xla_forward():
-    x, w1, b1, w2, b2 = _args()
-    ref = _mlp_xla(x.astype(jnp.float32), w1, b1, w2, b2, "gelu")
-    y_x = mlp_forward(x, w1, b1, w2, b2, impl="xla").astype(jnp.float32)
-    y_p = mlp_forward(x, w1, b1, w2, b2, impl="pallas",
-                      interpret=True).astype(jnp.float32)
-    scale = float(jnp.abs(ref).max())
-    # pallas computes bias+gelu in f32: at least as close to f32 as xla
-    assert float(jnp.abs(y_p - ref).max()) / scale < 5e-3
-    assert float(jnp.abs(y_p - y_x).max()) / scale < 8e-3
-
-
-def test_fused_gelu_new_variant():
-    x, w1, b1, w2, b2 = _args()
-    ref = _mlp_xla(x.astype(jnp.float32), w1, b1, w2, b2, "gelu_new")
-    y_p = mlp_forward(x, w1, b1, w2, b2, act="gelu_new", impl="pallas",
-                      interpret=True).astype(jnp.float32)
-    assert float(jnp.abs(y_p - ref).max()) / float(jnp.abs(ref).max()) \
-        < 5e-3
-
-
-def test_custom_vjp_grads_match_xla():
-    x, w1, b1, w2, b2 = _args()
-
-    def loss(impl):
-        def f(x, w1, b1, w2, b2):
-            y = mlp_forward(x, w1, b1, w2, b2, impl=impl, interpret=True)
-            return jnp.sum(y.astype(jnp.float32) ** 2)
-        return f
-
-    gp = jax.grad(loss("pallas"), argnums=(0, 1, 2, 3, 4))(
-        x, w1, b1, w2, b2)
-    gx = jax.grad(loss("xla"), argnums=(0, 1, 2, 3, 4))(x, w1, b1, w2, b2)
-    for a, b in zip(gp, gx):
-        af, bf_ = a.astype(jnp.float32), b.astype(jnp.float32)
-        scale = float(jnp.abs(bf_).max()) + 1e-6
-        # bwd recomputes the xla fwd; only the incoming cotangent differs
-        # (pallas fwd output), so grads agree to bf16 order
-        assert float(jnp.abs(af - bf_).max()) / scale < 2e-2
-
-
-def test_auto_is_xla_off_tpu():
-    x, w1, b1, w2, b2 = _args()
-    y_a = mlp_forward(x, w1, b1, w2, b2, impl="auto")
-    y_x = mlp_forward(x, w1, b1, w2, b2, impl="xla")
-    assert jnp.array_equal(y_a, y_x)
-
-
-def test_unknown_impl_rejected():
-    x, w1, b1, w2, b2 = _args()
-    with pytest.raises(ValueError, match="unknown mlp impl"):
-        mlp_forward(x, w1, b1, w2, b2, impl="pallas_")
-
-
-def test_pallas_unmappable_shape_raises():
-    x, w1, b1, w2, b2 = _args(K=256, F=1024)
-    bad = x[:, :3]  # 6 rows total: no 128-divisible bm
-    with pytest.raises(ValueError, match="cannot map"):
-        mlp_forward(bad, w1, b1, w2, b2, impl="pallas")
+def _mlp_params(params):
+    p = params["params"]
+    return (p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
+            p["fc2"]["bias"])
 
 
 def test_module_param_structure_unchanged():
-    """The Mlp module's pallas routing must keep nn.Dense's param tree
-    (fc1/fc2 kernel+bias) so existing/HF checkpoints load unchanged, and
-    mlp_impl='xla' must reproduce the original dense path exactly."""
+    """Mlp keeps nn.Dense's param tree (fc1/fc2 kernel+bias) so existing
+    and HF checkpoints load unchanged, and computes dense -> gelu ->
+    dense."""
     from smb_vision_tpu.models.layers import ACT2FN, Mlp
 
     x = _mk(7, (2, 64, 128), jnp.float32)
-    m_auto = Mlp(128, 512, dtype=jnp.float32)
-    m_xla = Mlp(128, 512, dtype=jnp.float32, mlp_impl="xla")
-    params = m_auto.init(jax.random.PRNGKey(0), x)
+    m = Mlp(128, 512, dtype=jnp.float32)
+    params = m.init(jax.random.PRNGKey(0), x)
     p = params["params"]
     assert set(p.keys()) == {"fc1", "fc2"}
     assert p["fc1"]["kernel"].shape == (128, 512)
     assert p["fc1"]["bias"].shape == (512,)
     assert p["fc2"]["kernel"].shape == (512, 128)
-    y_auto = m_auto.apply(params, x)   # auto -> xla on CPU
-    y_xla = m_xla.apply(params, x)
     ref = (ACT2FN["gelu"](x @ p["fc1"]["kernel"] + p["fc1"]["bias"])
            @ p["fc2"]["kernel"] + p["fc2"]["bias"])
-    assert jnp.allclose(y_auto, ref, atol=1e-5)
-    assert jnp.allclose(y_xla, ref, atol=1e-5)
+    assert jnp.allclose(m.apply(params, x), ref, atol=1e-5)
 
 
-def test_block_fuses_mlp_half_block():
-    """Block(mlp_impl='pallas') routes LN2+MLP+layerscale+residual
-    through the fused kernel (interpret off-TPU) with the SAME param
-    tree and matching numerics as the plain path."""
+@pytest.mark.parametrize("act", ["gelu", "gelu_new"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_module_matches_reference(act, dtype):
+    """Mlp in f32 and bf16 is bit-identical to ops.mlp.mlp_xla."""
+    from smb_vision_tpu.models.layers import Mlp
+
+    x = _mk(1, (2, 48, 64), dtype)
+    m = Mlp(64, 256, act=act, dtype=dtype)
+    params = m.init(jax.random.PRNGKey(0), x)
+    y = m.apply(params, x)
+    ref = mlp_xla(x, *_mlp_params(params), act=act)
+    assert y.dtype == dtype
+    np.testing.assert_array_equal(np.asarray(y, np.float32),
+                                  np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_block_mlp_half_matches_reference(dtype):
+    """Block's second half (LN2 -> Mlp -> residual) equals mlp_block_xla
+    when the attention half contributes nothing (zero attention output
+    projection)."""
     from smb_vision_tpu.models.layers import Block
 
-    x = _mk(11, (2, 128, 128), jnp.float32)
-    kw = dict(hidden_size=128, num_heads=2, intermediate_size=512,
-              dtype=jnp.float32, attn_impl="xla", layerscale_value=0.9)
-    b_ref = Block(**kw, mlp_impl="xla")
-    b_fused = Block(**kw, mlp_impl="pallas")
-    params = b_ref.init(jax.random.PRNGKey(0), x)
-    p2 = b_fused.init(jax.random.PRNGKey(0), x)
-    assert jax.tree_util.tree_structure(params) \
-        == jax.tree_util.tree_structure(p2)
-    y_ref = b_ref.apply(params, x)
-    y_fused = b_fused.apply(params, x)
-    scale = float(jnp.abs(y_ref).max())
-    assert float(jnp.abs(y_fused - y_ref).max()) / scale < 5e-3
+    x = _mk(11, (2, 32, 64), dtype)
+    blk = Block(64, 2, 256, dtype=dtype, attn_impl="xla")
+    params = blk.init(jax.random.PRNGKey(0), x)
+    p = jax.tree_util.tree_map(lambda a: a, params)
+    att = p["params"]["attention"]["proj"]
+    att["kernel"] = jnp.zeros_like(att["kernel"])
+    att["bias"] = jnp.zeros_like(att["bias"])
+    y = blk.apply(p, x)
+    n2 = p["params"]["norm2"]
+    ref = mlp_block_xla(x, n2["scale"], n2["bias"],
+                        *_mlp_params({"params": p["params"]["mlp"]}),
+                        eps=1e-6)
+    tol = 0 if dtype == jnp.float32 else 2e-2
+    scale = float(jnp.abs(ref.astype(jnp.float32)).max())
+    err = float(jnp.abs(y.astype(jnp.float32)
+                        - ref.astype(jnp.float32)).max())
+    assert err <= tol * scale + 1e-6, err
 
 
-def test_block_fused_matches_with_droppath_eval():
-    """drop_path_rate > 0 with deterministic=True (eval) still fuses and
-    matches; deterministic=False falls back to the unfused path."""
-    from smb_vision_tpu.models.layers import Block
+def test_module_grads_match_reference():
+    from smb_vision_tpu.models.layers import Mlp
 
-    x = _mk(12, (2, 128, 128), jnp.float32)
-    kw = dict(hidden_size=128, num_heads=2, intermediate_size=512,
-              dtype=jnp.float32, attn_impl="xla", drop_path_rate=0.3)
-    b_ref = Block(**kw, mlp_impl="xla")
-    b_fused = Block(**kw, mlp_impl="pallas")
-    params = b_ref.init(jax.random.PRNGKey(0), x)
-    y_ref = b_ref.apply(params, x, None, True)
-    y_fused = b_fused.apply(params, x, None, True)
-    scale = float(jnp.abs(y_ref).max())
-    assert float(jnp.abs(y_fused - y_ref).max()) / scale < 5e-3
-    # training-mode droppath: both paths apply the same stochastic mask
-    rngs = {"droppath": jax.random.PRNGKey(7)}
-    y_ref_t = b_ref.apply(params, x, None, False, rngs=rngs)
-    y_fused_t = b_fused.apply(params, x, None, False, rngs=rngs)
-    assert jnp.allclose(y_ref_t, y_fused_t, atol=5e-3 * scale)
+    x = _mk(3, (2, 16, 32), jnp.float32)
+    m = Mlp(32, 64, dtype=jnp.float32)
+    params = m.init(jax.random.PRNGKey(0), x)
+
+    g = jax.grad(lambda p: jnp.sum(m.apply(p, x) ** 2))(params)
+    g_ref = jax.grad(lambda w: jnp.sum(mlp_xla(x, *w) ** 2))(
+        _mlp_params(params))
+    for a, b in zip(_mlp_params(g), g_ref):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   atol=1e-5, rtol=1e-5)
 
 
-def test_odd_rows_pad_and_slice():
-    """DINOv2's CLS token makes rows b*(N+1) — never 128-divisible. The
-    fused path pads rows to the next 512 multiple and slices them off;
-    numerics must match the unpadded xla path."""
-    from smb_vision_tpu.ops.mlp import mlp_block_forward
-
-    M, K, F = 2049, 256, 1024   # odd row count >= 2048
-    x = _mk(0, (M, K), jnp.bfloat16)
-    lnw, lnb = 1.0 + _mk(9, (K,)) * 0.1, _mk(10, (K,)) * 0.1
-    w1, b1 = _mk(1, (K, F)), _mk(2, (F,)) * 0.1
-    w2, b2 = _mk(3, (F, K)), _mk(4, (K,)) * 0.1
-    y_p = mlp_forward(x, w1, b1, w2, b2, impl="pallas",
-                      interpret=True).astype(jnp.float32)
-    y_x = mlp_forward(x, w1, b1, w2, b2, impl="xla").astype(jnp.float32)
-    scale = float(jnp.abs(y_x).max())
-    assert y_p.shape == y_x.shape
-    assert float(jnp.abs(y_p - y_x).max()) / scale < 8e-3
-    yb_p = mlp_block_forward(x, lnw, lnb, w1, b1, w2, b2, impl="pallas",
-                             interpret=True).astype(jnp.float32)
-    yb_x = mlp_block_forward(x, lnw, lnb, w1, b1, w2, b2,
-                             impl="xla").astype(jnp.float32)
-    scale = float(jnp.abs(yb_x).max())
-    assert float(jnp.abs(yb_p - yb_x).max()) / scale < 8e-3
+def test_unknown_act_rejected():
+    x = _mk(4, (2, 8))
+    with pytest.raises(KeyError, match="swish"):
+        mlp_xla(x, _mk(5, (8, 16)), None, _mk(6, (16, 8)), None, act="swish")
 
 
-def test_swiglu_block_fused_matches():
-    """SwiGLU half-block kernel (interpret) vs the plain SwiGLU path:
-    same param tree, matching numerics, layerscale folded."""
-    from smb_vision_tpu.models.layers import Block
-
-    x = _mk(13, (2, 128, 128), jnp.float32)
-    kw = dict(hidden_size=128, num_heads=2, intermediate_size=256,
-              dtype=jnp.float32, attn_impl="xla", use_swiglu=True,
-              layerscale_value=0.9)
-    b_ref = Block(**kw, mlp_impl="xla")
-    b_fused = Block(**kw, mlp_impl="pallas")
-    params = b_ref.init(jax.random.PRNGKey(0), x)
-    p2 = b_fused.init(jax.random.PRNGKey(0), x)
-    assert jax.tree_util.tree_structure(params) \
-        == jax.tree_util.tree_structure(p2)
-    y_ref = b_ref.apply(params, x)
-    y_fused = b_fused.apply(params, x)
-    scale = float(jnp.abs(y_ref).max())
-    assert float(jnp.abs(y_fused - y_ref).max()) / scale < 5e-3
-
-
-def test_swiglu_block_grads_match():
-    from smb_vision_tpu.ops.mlp import swiglu_block_forward
-
-    M, K, F = 256, 128, 256
-    x = _mk(0, (M, K), jnp.bfloat16)
-    lnw, lnb = 1.0 + _mk(9, (K,)) * 0.1, _mk(10, (K,)) * 0.1
-    w_in, b_in = _mk(1, (K, 2 * F)), _mk(2, (2 * F,)) * 0.1
-    w_out, b_out = _mk(3, (F, K)), _mk(4, (K,)) * 0.1
-
-    def loss(impl):
-        def f(*a):
-            y = swiglu_block_forward(*a, impl=impl, interpret=True)
-            return jnp.sum(y.astype(jnp.float32) ** 2)
-        return f
-
-    gp = jax.grad(loss("pallas"), argnums=tuple(range(7)))(
-        x, lnw, lnb, w_in, b_in, w_out, b_out)
-    gx = jax.grad(loss("xla"), argnums=tuple(range(7)))(
-        x, lnw, lnb, w_in, b_in, w_out, b_out)
-    for a, b in zip(gp, gx):
-        scale = float(jnp.abs(b).max()) + 1e-6
-        assert float(jnp.abs(a.astype(jnp.float32)
-                             - b.astype(jnp.float32)).max()) / scale \
-            < 3e-2
-
-
-def test_block_custom_vjp_grads_match_xla():
-    """mlp_block_forward's custom VJP (the variant Block routes training
-    through on TPU) must match the plain XLA gradients."""
-    from smb_vision_tpu.ops.mlp import mlp_block_forward
-
-    M, K, F = 256, 128, 512
-    x = _mk(0, (M, K), jnp.bfloat16)
-    lnw, lnb = 1.0 + _mk(9, (K,)) * 0.1, _mk(10, (K,)) * 0.1
-    w1, b1 = _mk(1, (K, F)), _mk(2, (F,)) * 0.1
-    w2, b2 = _mk(3, (F, K)), _mk(4, (K,)) * 0.1
-
-    def loss(impl):
-        def f(*a):
-            y = mlp_block_forward(*a, impl=impl, interpret=True)
-            return jnp.sum(y.astype(jnp.float32) ** 2)
-        return f
-
-    gp = jax.grad(loss("pallas"), argnums=tuple(range(7)))(
-        x, lnw, lnb, w1, b1, w2, b2)
-    gx = jax.grad(loss("xla"), argnums=tuple(range(7)))(
-        x, lnw, lnb, w1, b1, w2, b2)
-    for a, b in zip(gp, gx):
-        scale = float(jnp.abs(b).max()) + 1e-6
-        assert float(jnp.abs(a.astype(jnp.float32)
-                             - b.astype(jnp.float32)).max()) / scale \
-            < 3e-2
+def test_mlp_block_reference_is_layernorm_then_mlp():
+    x = _mk(5, (4, 32), jnp.float32)
+    lnw, lnb = _mk(6, (32,)), _mk(7, (32,))
+    w1, b1, w2, b2 = _mk(8, (32, 64)), _mk(9, (64,)), _mk(10, (64, 32)), \
+        _mk(11, (32,))
+    mu = x.mean(-1, keepdims=True)
+    xn = (x - mu) / jnp.sqrt(x.var(-1, keepdims=True) + 1e-6) * lnw + lnb
+    ref = x + jax.nn.gelu(xn @ w1 + b1, approximate=False) @ w2 + b2
+    np.testing.assert_allclose(
+        np.asarray(mlp_block_xla(x, lnw, lnb, w1, b1, w2, b2)),
+        np.asarray(ref), atol=1e-5, rtol=1e-5)

@@ -219,7 +219,7 @@ def test_dinov2_pos_embed_resize():
 
 def test_videomae_quant8_embed_close_to_f32():
     """W8A8 projections (config.quant8): the embed path runs its QKV/MLP
-    matmuls on the int8 MXU. Param structure is unchanged (QuantDense
+    matmuls as int8 x int8 -> int32 dots. Param structure is unchanged (QuantDense
     mirrors nn.Dense), so the same checkpoint serves both paths; output
     drift stays within a few bf16-rounding units."""
     cfg = tiny_videomae()

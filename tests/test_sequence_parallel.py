@@ -72,8 +72,8 @@ def test_sequence_parallel_train_step(eight_devices):
 
 def test_sequence_parallel_uses_flash_wrapper(eight_devices, monkeypatch):
     """The SP model path must route attention through the shard_map CP
-    wrapper (which runs the Pallas kernel per shard on TPU) — round 1
-    silently fell back to O(N^2) XLA attention."""
+    wrapper (which runs `attention` per shard), not whole-sequence
+    attention."""
     import smb_vision_tpu.models.layers as layers_mod
     import smb_vision_tpu.parallel.context as ctx_mod
 

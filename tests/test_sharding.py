@@ -172,30 +172,11 @@ def test_pipeline_policy_shards_stacked_layer_axis(eight_devices):
         param_shardings(bad, mesh, policy="pipeline")
 
 
-def test_dcn_mesh_two_slice_emulation(eight_devices):
-    """Multi-slice mesh (VERDICT r1 item 8): data axis spans the emulated
-    DCN boundary; sharding semantics identical to the flat mesh."""
-    mesh = create_mesh(model=2, dcn=2, devices=eight_devices)
-    assert dict(mesh.shape) == {"data": 4, "model": 2}
-    # a sharded batch + param matmul runs under the hybrid mesh
-    x = jnp.arange(16.0).reshape(4, 4)
-    w = jnp.ones((4, 4))
-    xs = jax.device_put(x, NamedSharding(mesh, P("data", None)))
-    ws = jax.device_put(w, NamedSharding(mesh, P(None, "model")))
-    with jax.set_mesh(mesh):
-        out = jax.jit(lambda a, b: a @ b)(xs, ws)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(x @ w))
-
-    with pytest.raises(ValueError, match="divisible"):
-        create_mesh(model=2, dcn=3, devices=eight_devices)
-
-
 def test_fsdp_memory_analysis_vs_dp(eight_devices):
     """fsdp (the ZeRO-3 equivalent, reference ds_z3_config.json) must
     actually shrink per-device resident state: compiled memory_analysis
     of the SAME train step shows fsdp argument bytes well under the
-    replicated-dp bytes. Full ViT-L numbers in BENCHMARKS.md "FSDP
-    memory" (scripts/kexp/fsdp_mem_probe.py)."""
+    replicated-dp bytes."""
     from smb_vision_tpu.parallel.mesh import replicated
     from smb_vision_tpu.train.mim import make_mim_workload
 

@@ -351,7 +351,7 @@ def test_accumulate_gradients_matches_full_batch_and_carries_aux(rng):
 
 
 def test_accumulate_gradients_bf16_accumulator_tracks_f32(rng):
-    """accum_dtype='bfloat16' (the v5e HBM-relief option for ViT-L V-JEPA
+    """accum_dtype='bfloat16' (the memory-relief option for ViT-L V-JEPA
     grad-accum) must track the exact f32 accumulation within bf16 noise and
     still return f32 gradients for the optimizer."""
     from smb_vision_tpu.train.trainer import accumulate_gradients
@@ -376,25 +376,19 @@ def test_accumulate_gradients_bf16_accumulator_tracks_f32(rng):
 
 
 def test_classification_init_with_forced_kernel_impl(rng):
-    """The TPU presets pin mlp_impl='pallas_bwd'. init traces a
-    1-sample slice whose row count may not map onto the kernel even
-    when the real train batch does (run_cls.sh geometry: 1960 rows at
-    bs 1 vs 15680 -> padded at bs 8) — init must run impl-neutral
-    (round-5 finding) and the full-batch step must train through the
-    kernel path."""
+    """A config pinning attn_impl='xla' in bf16: init traces a 1-sample
+    slice of the batch, and the full-batch step then trains through the
+    same path."""
     from smb_vision_tpu.models.configs import VideoMAEConfig
     from smb_vision_tpu.models.videomae import VideoMAEForVideoClassification
     from smb_vision_tpu.train.classification import make_classification_workload
 
-    # 64 rows/sample: NOT kernel-mappable at bs 1 (not a 128-multiple,
-    # < 2048 so no padding), mappable at bs 8 (512 rows)
     cfg = VideoMAEConfig(image_size=64, num_frames=64, patch_size=16,
                          tubelet_size=16, num_channels=1, hidden_size=128,
                          num_hidden_layers=1, num_attention_heads=2,
                          intermediate_size=256, num_labels=2,
                          problem_type="single_label_classification",
-                         dtype="bfloat16", attn_impl="xla",
-                         mlp_impl="pallas_bwd")
+                         dtype="bfloat16", attn_impl="xla")
     model = VideoMAEForVideoClassification(cfg)
     init_fn, step_fn, _ = make_classification_workload(
         model, cfg, task_type="classification", tx=optax.sgd(1e-2))
@@ -516,8 +510,8 @@ def test_drop_path_trains_with_rngs(rng):
 
 def test_eval_single_compile_over_ragged_dataset(tmp_path):
     """Eval over a dataset not divisible by the batch must compile eval_fn
-    exactly once (round 1 re-jitted per distinct final-batch shape — one
-    multi-minute TPU compile each) and still produce exact metrics."""
+    exactly once (not once per distinct final-batch shape) and still
+    produce exact metrics."""
     from smb_vision_tpu.train.trainer import Trainer, TrainingArguments
 
     class ListLoader:
@@ -1020,8 +1014,8 @@ def test_trainer_final_save_no_step_collision(tmp_path):
 
 
 def test_trainer_overwrite_output_dir_deletes_stale_steps(tmp_path):
-    """overwrite_output_dir must delete the old run's checkpoints: orbax
-    refuses to re-save a step number that already exists on disk."""
+    """overwrite_output_dir must delete the old run's checkpoints, so a
+    later resume cannot pick up the stale run's steps."""
     from smb_vision_tpu.train.trainer import Trainer, TrainingArguments
 
     def step_fn(state, batch, key):
@@ -1402,7 +1396,7 @@ def test_resume_trajectory_bitwise_equals_straight_run(tmp_path, rng,
     drift in the restored step/LR/RNG/data position/optimizer moments
     shows up as a bit difference here. The adamw8bit case additionally
     proves the int8 moment codes + f32 block scales round-trip exactly
-    through the orbax checkpoint."""
+    through the checkpoint files."""
     from smb_vision_tpu.models.configs import VideoMAEConfig
     from smb_vision_tpu.train.mim import make_mim_workload
     from smb_vision_tpu.train.optim import make_optimizer
